@@ -1,0 +1,108 @@
+"""The torch port's banded-alignment inputs and plain DP
+(platypus_tpu_torch/ops/align_torch.py) against the checked-in reference
+goldens, the JAX scan kernel and the Pallas kernel (interpret mode on the
+CPU).  Scores are integers: every comparison is bitwise."""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import golden_groups
+from platypus_tpu.ops.align_jax import (_gather_pad_device, band_align_padded,
+                                        pad_alignment_inputs)
+from platypus_tpu.ops.align_pallas import band_align_padded_pallas
+from platypus_tpu_torch.ops import align_cuda, align_torch
+
+
+BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _random_case(seed, B, L2, n_frac=0.0, mixed=True):
+    """test_align.py:82-106 style pairs: reads cut from the hap at a band
+    offset, point mutations, random quals and gap opens; optional 'N'
+    bases in hap and read."""
+    rng = np.random.default_rng(seed)
+    hap = rng.choice(BASES, size=(B, L2 + 15)).astype(np.int32)
+    go = rng.integers(3, 50, size=(B, L2 + 15)).astype(np.int32)
+    read = np.zeros((B, L2), np.int32)
+    for b in range(B):
+        off = rng.integers(0, 8)
+        read[b] = hap[b, off : off + L2]
+    n_mut = 200 * B // 128
+    mut = rng.integers(0, B, n_mut), rng.integers(0, L2, n_mut)
+    read[mut] = rng.choice(BASES, n_mut)
+    if n_frac:
+        hap[rng.random(hap.shape) < n_frac] = ord("N")
+        read[rng.random(read.shape) < n_frac] = ord("N")
+    qual = rng.integers(0, 60, size=(B, L2)).astype(np.int32)
+    lo = 10 if mixed else L2
+    rl = rng.integers(lo, L2 + 1, size=B).astype(np.int32)
+    return hap, go, read, qual, rl
+
+
+def test_plain_dp_matches_goldens():
+    n = 0
+    for ge, npr, inputs, want in golden_groups():
+        got = align_torch.band_align_batch(*inputs, gapextend=ge, nucprior=npr)
+        np.testing.assert_array_equal(got, want, err_msg=f"ge={ge} npr={npr}")
+        n += len(want)
+    assert n >= 300
+
+
+def test_cuda_wrapper_on_cpu_tensors_runs_plain_dp():
+    """A CPU tensor reaches the plain version; the kernel counter stays."""
+    before = align_cuda.LAUNCHES
+    for ge, npr, inputs, want in golden_groups():
+        padded = align_torch.pad_alignment_inputs(*inputs)
+        got = align_cuda.band_align_padded(*padded, gapextend=ge, nucprior=npr)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert align_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("seed,B,L2,n_frac,mixed", [
+    (7, 128, 40, 0.0, True),     # the test_align.py:82 case
+    (11, 128, 32, 0.0, False),   # all reads full length
+    (13, 200, 40, 0.03, True),   # B not a multiple of 128, 'N' bases
+    (17, 64, 100, 0.01, True),   # main-path read length
+])
+def test_plain_dp_matches_jax_and_pallas(seed, B, L2, n_frac, mixed):
+    inputs = _random_case(seed, B, L2, n_frac, mixed)
+    jax_padded = pad_alignment_inputs(*inputs)
+    want = np.asarray(band_align_padded(*jax_padded))
+    np.testing.assert_array_equal(
+        np.asarray(band_align_padded_pallas(*jax_padded)), want)
+    padded = align_torch.pad_alignment_inputs(*inputs)
+    for ours, theirs in zip(padded, jax_padded):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    got = align_torch.band_align_padded_reference(*padded).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("overhang", [False, True])
+def test_gather_pad_matches_jax(overhang):
+    """gather_pad == _gather_pad_device, including segments that run past
+    the matrix width (JAX clamps those column indices)."""
+    rng = np.random.default_rng(5 + overhang)
+    H, A, L2, L1B, B = 6, 40, 32, 96, 300
+    hap_mat = rng.choice(BASES, size=(H, L1B)).astype(np.uint8)
+    hap_mat[:, -5:] = ord("N")
+    go_mat = rng.integers(3, 79, size=(H, L1B)).astype(np.uint8)
+    seq_mat = rng.choice(BASES, size=(A, L2)).astype(np.uint8)
+    qual_mat = rng.integers(0, 60, size=(A, L2)).astype(np.uint8)
+    ph = rng.integers(0, H, B).astype(np.int32)
+    pr = rng.integers(0, A, B).astype(np.int32)
+    hi = L1B - 10 if overhang else L1B - (L2 + 15)
+    ps = rng.integers(0, hi, B).astype(np.int32)
+    if overhang:
+        ps[:20] = L1B - 3
+        assert (ps + L2 + 15 > L1B).any()
+    rl = rng.integers(8, L2 + 1, B).astype(np.int32)
+    want = _gather_pad_device(hap_mat, go_mat, seq_mat, qual_mat, ph, pr, ps, rl)
+    got = align_torch.gather_pad(
+        *(torch.from_numpy(a) for a in (hap_mat, go_mat, seq_mat, qual_mat,
+                                        ph, pr, ps, rl)))
+    for ours, theirs in zip(got, want):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    np.testing.assert_array_equal(
+        align_torch.band_align_padded_reference(*got).numpy(),
+        np.asarray(band_align_padded(*want)))
