@@ -7,23 +7,37 @@ Needs one CUDA card, nvcc and the repository checkout around this file;
 without either it exits non-zero before printing any result.  Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the banded-alignment kernel (csrc/band_align.cu, nvcc for
-   sm_90a);
-3. kernel: the CUDA kernel bitwise against its plain torch version on the
-   card -- every reference golden, and main-path shapes (B = 16384, 2048
-   and 2000 pairs at read lengths 100 and 128, mixed lengths, 'N' bases)
-   -- then both timed with CUDA events at B=16384, L2=100;
+2. build: every kernel library of align_cuda.KERNELS -- K1, the
+   banded-alignment DP (csrc/band_align.cu), and K2, its traceback mode
+   (csrc/band_align_tb.cu) -- one nvcc each for sm_90a, started together;
+3. kernel: each CUDA kernel bitwise against its plain torch version on
+   the card -- every reference golden (K2: the flank goldens, whose
+   alignments the host backtrace must reproduce from K2's label words),
+   and main-path shapes (B = 16384, 2048 and 2000 pairs at read lengths
+   100 and 128, mixed lengths, 'N' bases) -- then each timed with CUDA
+   events against its plain version at B=16384, L2=100;
 4. slice: `platypus_tpu_torch.cli.main(["callVariants", ...])` on cuda
-   over a synthetic 1 Mb, 30x, 100 bp dataset (ten 100 kb regions), with
-   counters showing the kernel and the fused inference ran (this first
-   call also builds the native host library on a fresh checkout); then
-   one more 100 kb region with --maxHaplotypes=4 so the beam search aligns
-   through the kernel too;
+   over a synthetic 1 Mb, 30x, 100 bp dataset (ten 100 kb regions; built
+   by tests/test_torch_smoke_data.py in a child process, as is the HLA
+   panel, since their writers belong to the JAX package), with
+   counters showing K1 and the fused inference ran (this first call also
+   builds the native host library on a fresh checkout); then one more
+   100 kb region with --maxHaplotypes=4 so the beam search aligns through
+   K1 too;
 5. reference: the JAX package's CLI pinned to the CPU (native kernels,
    float64 inference, no jax import) on the same data; the port's VCF
    data lines must be byte-identical to it in both runs.  For a like for
    like time, the port's CLI also runs in a fresh interpreter, as the
-   reference does: both walls include interpreter start and imports.
+   reference does: both walls include interpreter start and imports;
+6. flank: the whole slice again with --calculateFlankScore=1, which must
+   launch K2 and lower some pair scores by the flank penalty; then
+   chr20:1000-21000 with it, in this process and in a
+   fresh interpreter, byte-identical to the CPU-pinned reference (whose
+   scalar flank path takes ~6 ms per pair, hence the smaller region);
+7. HLA: --HLATyping=1 on a synthetic typing panel (160 alleles of a 2 kb
+   region on contig 6, 30x of 100 bp reads from two of them), which
+   scores through K1: in this process, in a fresh interpreter and
+   against the CPU-pinned reference, byte-identical.
 
 Any ERROR record on the `platypus_tpu` logger fails the run (every
 crash-containment path logs there).  The last two lines of stdout are the
@@ -39,13 +53,18 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(REPO, "tests", "goldens", "align_goldens.json")
-KERNEL_SOURCE = "platypus_tpu_torch/csrc/band_align.cu"
-KERNEL_REPLACES = "platypus_tpu/ops/align_pallas.py:48"
+FLANK_GOLDENS = os.path.join(REPO, "tests", "goldens", "flank_goldens.json")
+DATASETS = os.path.join(REPO, "tests", "test_torch_smoke_data.py")
 SLICE_MB = 1.0
 TIMED_B, TIMED_L2 = 16384, 100
+MAIN_SHAPES = [(16384, 100), (16384, 128), (2048, 100), (2048, 128),
+               (2000, 100), (2000, 128)]
+FLANK_REGION = "chr20:1000-21000"
+HLA_ALLELES, HLA_REGION_LEN, HLA_COVERAGE = 160, 2000, 30
 
 
 class ErrorRecords(logging.Handler):
@@ -90,6 +109,58 @@ def golden_groups():
             qual[i, : len(r)] = c["quals"]
             rl[i] = len(r)
         yield ge, npr, (hap, go, read, qual, rl), np.array([c["score"] for c in group])
+
+
+def flank_goldens():
+    """The flank goldens (all gapextend 3, nucprior 2) as one batch:
+    (cases, (hap, gap-open, read, qual, read length) numpy rows)."""
+    import numpy as np
+
+    with open(FLANK_GOLDENS) as fh:
+        cases = json.load(fh)
+    L2 = max(len(c["read"]) for c in cases)
+    B = len(cases)
+    hap = np.zeros((B, L2 + 15), np.int32)
+    go = np.zeros((B, L2 + 15), np.int32)
+    read = np.zeros((B, L2), np.int32)
+    qual = np.zeros((B, L2), np.int32)
+    rl = np.zeros(B, np.int32)
+    for i, c in enumerate(cases):
+        h = np.frombuffer(c["hap"].encode(), np.uint8)
+        r = np.frombuffer(c["read"].encode(), np.uint8)
+        hap[i, : len(h)] = h
+        go[i, : len(h)] = c["gapopen"]
+        read[i, : len(r)] = r
+        qual[i, : len(r)] = c["quals"]
+        rl[i] = len(r)
+    return cases, (hap, go, read, qual, rl)
+
+
+def flank_golden_mismatches(cases, score, idx, bp):
+    """Indices of the flank goldens whose score, or whose alignment rows,
+    first position and flank penalty as the host backtrace recovers them
+    from the traceback kernel's (score, idx, bp) numpy outputs, differ
+    from the golden."""
+    import numpy as np
+
+    from platypus_tpu_torch.engine.score import (calculate_flank_score,
+                                                 traceback_from_backpointers,
+                                                 unpack_backpointers)
+
+    bad = []
+    for k, c in enumerate(cases):
+        aln1, aln2, firstpos = traceback_from_backpointers(
+            unpack_backpointers(bp[:, k]), int(idx[k]), c["hap"].encode(),
+            c["read"].encode())
+        flank = calculate_flank_score(
+            len(c["hap"]), c["flank"], np.array(c["quals"]),
+            np.array(c["gapopen"]), c["gapextend"], c["nucprior"], firstpos,
+            aln1, aln2)
+        if (int(score[k]), aln1.decode(), aln2.decode(), firstpos, flank) != (
+                c["score"], c["aln1"], c["aln2"], c["firstpos"],
+                c["flank_score"]):
+            bad.append(k)
+    return bad
 
 
 def random_pairs(seed, B, L2):
@@ -139,8 +210,7 @@ def check_kernel(device):
     max_err = 0
     n_pairs = 0
     cases = [(ge, npr, inputs) for ge, npr, inputs, _ in golden_groups()]
-    for seed, (B, L2) in enumerate([(16384, 100), (16384, 128), (2048, 100),
-                                    (2048, 128), (2000, 100), (2000, 128)]):
+    for seed, (B, L2) in enumerate(MAIN_SHAPES):
         cases.append((3, 2, random_pairs(seed, B, L2)))
     for k, (ge, npr, inputs) in enumerate(cases):
         padded = align_torch.pad_alignment_inputs(*inputs, device=device)
@@ -167,18 +237,74 @@ def check_kernel(device):
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
 
 
-def slice_dataset():
-    """The synthetic 1 Mb, 30x, 100 bp dataset of tools/scaling_bench.py,
-    cached under the temporary directory."""
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    from scaling_bench import build_dataset
+def check_tb_kernel(device):
+    """Phase 3 for K2: score, exit index and the whole label block bitwise
+    equal to the plain traceback DP on the flank goldens and main-path
+    shapes, the goldens' alignments recovered from K2's output by the host
+    backtrace, then both timed.  Returns the report fields."""
+    import torch
 
-    length = int(SLICE_MB * 1_000_000)
-    workdir = os.path.join(tempfile.gettempdir(), "platypus_tpu_torch_smoke",
-                           f"mb{SLICE_MB:g}")
-    info = build_dataset(workdir, length)
-    info["workdir"] = workdir
-    return info
+    from platypus_tpu_torch.ops import align_cuda, align_torch
+
+    golden_cases, golden_inputs = flank_goldens()
+    cases = [golden_inputs] + [random_pairs(100 + seed, B, L2)
+                               for seed, (B, L2) in enumerate(MAIN_SHAPES)]
+    max_err = 0
+    n_pairs = 0
+    for k, inputs in enumerate(cases):
+        padded = align_torch.pad_alignment_inputs(*inputs, device=device)
+        got = align_cuda.band_align_traceback_padded(*padded)
+        want = align_torch.band_align_traceback_padded_reference(*padded)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        max_err = max(max_err, err)
+        n_pairs += got[0].numel()
+        if err:
+            raise AssertionError(f"traceback kernel != plain DP on case {k} "
+                                 f"(B={got[0].numel()}): max |diff| {err}")
+        if k == 0:
+            bad = flank_golden_mismatches(golden_cases,
+                                          *(t.cpu().numpy() for t in got))
+            if bad:
+                raise AssertionError(f"traceback kernel: flank goldens {bad} "
+                                     "not reproduced by the host backtrace")
+    print(f"kernel K2: score, idx and bp bitwise equal to the plain traceback "
+          f"DP on {len(cases)} batches, {n_pairs} pairs (flank goldens + "
+          f"main-path shapes); {len(golden_cases)} flank goldens' alignments "
+          f"and flank scores reproduced", flush=True)
+
+    padded = align_torch.pad_alignment_inputs(*random_pairs(99, TIMED_B, TIMED_L2),
+                                              device=device)
+    ms = cuda_ms(lambda: align_cuda.band_align_traceback_padded(*padded), 20)
+    plain_ms = cuda_ms(
+        lambda: align_torch.band_align_traceback_padded_reference(*padded), 3)
+    print(f"kernel K2: B={TIMED_B} L2={TIMED_L2}: cuda {ms:.6f} ms "
+          f"({TIMED_B / ms * 1e3:.1f} pairs/s), plain torch {plain_ms:.6f} ms "
+          f"({TIMED_B / plain_ms * 1e3:.1f} pairs/s)", flush=True)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+
+
+def build_dataset(kind, workdir, *args):
+    """A synthetic dataset built (or reused) in `workdir` by
+    `python tests/test_torch_smoke_data.py kind workdir args...` in a child
+    process -- its writers belong to the JAX package, which this script does
+    not import.  Returns the dataset's description (a dict of paths)."""
+    proc = subprocess.run([sys.executable, DATASETS, kind, workdir,
+                           *map(str, args)], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building the {kind} dataset failed "
+                           f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def hla_args(info, out):
+    """callVariants arguments of an HLA typing run over `info`'s panel."""
+    return ["callVariants", f"--bamFiles={info['bam']}",
+            f"--refFile={info['ref']}", f"--regions={info['region']}",
+            "--HLATyping=1", f"--source={info['panel']}", "--longHaps=1",
+            "--assemble=0", "--getVariantsFromBAMs=0",
+            f"--logFileName={out}.log", "--verbosity=1", "-o", out]
 
 
 def data_lines(path):
@@ -192,35 +318,54 @@ def cli_args(info, region, out, extra=()):
             f"--logFileName={out}.log", "--verbosity=1", *extra, "-o", out]
 
 
-def run_port(info, region, out, extra=()):
-    """The port's CLI on cuda, in this process; prints the engine's stage
-    timers (host clock; device stages are queue + wait times) and returns
-    (wall seconds, kernel launches, fused-inference batches) of this run."""
-    import torch
+def reset_counts():
+    """Zero every kernel's launch count and the fused-inference count."""
+    from platypus_tpu_torch.ops import align_cuda
+    from platypus_tpu_torch.parallel import batch
 
-    from platypus_tpu_torch import cli
+    for name in align_cuda.LAUNCHES:
+        align_cuda.LAUNCHES[name] = 0
+    batch.BATCHES = 0
+
+
+def read_counts():
+    """Launches per kernel library, fused-inference batches and pairs whose
+    score the flank penalty lowered, since the last reset_counts() (and
+    metrics.reset())."""
     from platypus_tpu_torch.engine.region import metrics
     from platypus_tpu_torch.ops import align_cuda
     from platypus_tpu_torch.parallel import batch
 
+    return dict(align_cuda.LAUNCHES, batches=batch.BATCHES,
+                flank_pairs_lowered=metrics.counters["flank_pairs_lowered"])
+
+
+def run_port(argv):
+    """The port's CLI on cuda, in this process; prints the engine's stage
+    timers (host clock; device stages are queue + wait times) and returns
+    (wall seconds, read_counts() of this run)."""
+    import torch
+
+    from platypus_tpu_torch import cli
+    from platypus_tpu_torch.engine.region import metrics
+
     metrics.reset()
-    align_cuda.LAUNCHES = 0
-    batch.BATCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
-    rc = cli.main(cli_args(info, region, out, extra))
+    rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = read_counts()
     if rc != 0:
         raise RuntimeError(f"port CLI returned {rc}")
     print(f"stages: {metrics.summary()}", flush=True)
-    return wall, align_cuda.LAUNCHES, batch.BATCHES
+    return wall, counts
 
 
-def run_cli(package, info, region, out, extra=(), env=None):
-    """`python -m <package>.cli callVariants ...` in a fresh interpreter;
-    returns its wall seconds (interpreter start and imports included)."""
-    cmd = [sys.executable, "-m", f"{package}.cli",
-           *cli_args(info, region, out, extra)]
+def run_cli(package, argv, env=None):
+    """`python -m <package>.cli <argv>` in a fresh interpreter; returns its
+    wall seconds (interpreter start and imports included)."""
+    cmd = [sys.executable, "-m", f"{package}.cli", *argv]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=900)
@@ -231,10 +376,10 @@ def run_cli(package, info, region, out, extra=(), env=None):
     return wall
 
 
-def run_port_cli(info, region, out, extra=()):
+def run_port_cli(argv, out):
     """The port's CLI on cuda in a fresh interpreter; fails on any ERROR
-    line of its log.  Returns its wall seconds."""
-    wall = run_cli("platypus_tpu_torch", info, region, out, extra)
+    line of its log (`out`.log).  Returns its wall seconds."""
+    wall = run_cli("platypus_tpu_torch", argv)
     with open(f"{out}.log") as fh:
         errors = [line for line in fh if " - ERROR - " in line
                   or " - CRITICAL - " in line]
@@ -243,12 +388,15 @@ def run_port_cli(info, region, out, extra=()):
     return wall
 
 
-def run_reference(info, region, out, extra=()):
+def run_reference(argv):
     """The JAX package's CLI pinned to the CPU, in a fresh interpreter;
-    returns its wall seconds."""
-    env = dict(os.environ, PLATYPUS_TPU_PLATFORM="cpu", JAX_PLATFORMS="cpu")
-    return run_cli("platypus_tpu", info, region, out,
-                   ("--deviceInference=0", *extra), env=env)
+    returns its wall seconds.  PLATYPUS_TPU_DEVICE_FLANK=0 keeps its
+    --calculateFlankScore path from importing jax, which this host may
+    not have."""
+    env = dict(os.environ, PLATYPUS_TPU_PLATFORM="cpu", JAX_PLATFORMS="cpu",
+               PLATYPUS_TPU_DEVICE_FLANK="0")
+    return run_cli("platypus_tpu", [argv[0], "--deviceInference=0", *argv[1:]],
+                   env=env)
 
 
 def check_same_calls(what, ref_out, *port_outs):
@@ -261,6 +409,21 @@ def check_same_calls(what, ref_out, *port_outs):
             raise AssertionError(f"{what}: {out} differs from the reference: "
                                  f"{len(port_lines)} vs {len(ref_lines)} data lines")
     return len(ref_lines)
+
+
+def compare_three(what, workdir, name, argv_of):
+    """`argv_of(out)` through the port in this process, the port's CLI in
+    a fresh interpreter and the CPU-pinned reference; the data lines must
+    be byte-identical.  Returns (in-process wall, its counts, fresh port
+    wall, reference wall, number of data lines)."""
+    port_out = os.path.join(workdir, f"port_{name}.vcf")
+    wall, counts = run_port(argv_of(port_out))
+    cli_out = os.path.join(workdir, f"port_cli_{name}.vcf")
+    cli_wall = run_port_cli(argv_of(cli_out), cli_out)
+    ref_out = os.path.join(workdir, f"reference_{name}.vcf")
+    ref_wall = run_reference(argv_of(ref_out))
+    n_lines = check_same_calls(what, ref_out, port_out, cli_out)
+    return wall, counts, cli_wall, ref_wall, n_lines
 
 
 def main() -> int:
@@ -285,40 +448,50 @@ def main() -> int:
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    align_cuda.load()
-    print(f"build: band_align kernel in {time.perf_counter() - t0:.3f} s", flush=True)
-    for line in align_cuda.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: ptxas: {line.strip()}", flush=True)
+    with ThreadPoolExecutor(len(align_cuda.KERNELS)) as pool:
+        list(pool.map(align_cuda.build, align_cuda.KERNELS))
+    for name in align_cuda.KERNELS:
+        align_cuda.load(name)
+    print(f"build: {', '.join(align_cuda.KERNELS)} kernels in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for name in align_cuda.KERNELS:
+        for line in align_cuda.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {name}: ptxas: {line.strip()}", flush=True)
 
     # 3. kernel
-    report = check_kernel(device)
+    report = {"band_align": check_kernel(device),
+              "band_align_tb": check_tb_kernel(device)}
     errors.check("kernel")
 
     # 4. slice on cuda, 5. the CPU-pinned reference on the same data
     t0 = time.perf_counter()
-    info = slice_dataset()
+    workdir = os.path.join(tempfile.gettempdir(), "platypus_tpu_torch_smoke",
+                           f"mb{SLICE_MB:g}")
+    info = build_dataset("slice", workdir, SLICE_MB)
+    info["workdir"] = workdir
     print(f"slice: dataset {info['n_reads']} reads over {info['length']} bp "
           f"({time.perf_counter() - t0:.3f} s to build or load)", flush=True)
     region = f"chr20:1000-{info['length'] + 1000}"
     port_out = os.path.join(info["workdir"], "port.vcf")
-    wall, launches, batches = run_port(info, region, port_out)
+    wall, counts = run_port(cli_args(info, region, port_out))
     errors.check("slice")
-    if launches <= 0 or batches <= 0:
-        raise AssertionError(f"main path missed the card: {launches} kernel "
-                             f"launches, {batches} fused-inference batches")
+    launches = {"band_align": counts["band_align"]}
+    if counts["band_align"] <= 0 or counts["batches"] <= 0:
+        raise AssertionError(f"main path missed the card: {counts}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported by the port's main path")
     print(f"slice: port on cuda in this process (first call) {wall:.6f} s, "
-          f"{info['n_reads'] / wall:.1f} reads/s, {launches} kernel launches, "
-          f"{batches} fused-inference batches", flush=True)
+          f"{info['n_reads'] / wall:.1f} reads/s, {counts['band_align']} "
+          f"kernel launches, {counts['batches']} fused-inference batches",
+          flush=True)
 
     cli_out = os.path.join(info["workdir"], "port_cli.vcf")
-    cli_wall = run_port_cli(info, region, cli_out)
+    cli_wall = run_port_cli(cli_args(info, region, cli_out), cli_out)
     ref_out = os.path.join(info["workdir"], "reference.vcf")
-    ref_wall = run_reference(info, region, ref_out)
+    ref_wall = run_reference(cli_args(info, region, ref_out))
     n_lines = check_same_calls("slice", ref_out, port_out, cli_out)
     print(f"reference: fresh interpreters, port CLI on cuda {cli_wall:.6f} s "
           f"({info['n_reads'] / cli_wall:.1f} reads/s), CPU-pinned platypus_tpu "
@@ -329,28 +502,24 @@ def main() -> int:
     inner = port_caller._beam_search_haplotypes
 
     def counting_beam(*args, **kwargs):
-        before = align_cuda.LAUNCHES
+        before = align_cuda.LAUNCHES["band_align"]
         out = inner(*args, **kwargs)
         beam["calls"] += 1
-        beam["launches"] += align_cuda.LAUNCHES - before
+        beam["launches"] += align_cuda.LAUNCHES["band_align"] - before
         return out
 
     port_caller._beam_search_haplotypes = counting_beam
     beam_region = "chr20:1000-101000"
     extra = ("--maxHaplotypes=4",)
-    port_beam = os.path.join(info["workdir"], "port_beam.vcf")
     try:
-        beam_wall, _, _ = run_port(info, beam_region, port_beam, extra)
+        beam_wall, _, cli_beam_wall, ref_beam_wall, n_lines = compare_three(
+            "--maxHaplotypes=4", info["workdir"], "beam",
+            lambda out: cli_args(info, beam_region, out, extra))
     finally:
         port_caller._beam_search_haplotypes = inner
     errors.check("beam search")
     if beam["calls"] <= 0 or beam["launches"] <= 0:
         raise AssertionError(f"beam search did not run through the kernel: {beam}")
-    cli_beam = os.path.join(info["workdir"], "port_cli_beam.vcf")
-    cli_beam_wall = run_port_cli(info, beam_region, cli_beam, extra)
-    ref_beam = os.path.join(info["workdir"], "reference_beam.vcf")
-    ref_beam_wall = run_reference(info, beam_region, ref_beam, extra)
-    n_lines = check_same_calls("--maxHaplotypes=4", ref_beam, port_beam, cli_beam)
     print(f"beam: {beam['calls']} beam searches, {beam['launches']} kernel "
           f"launches; port in this process {beam_wall:.6f} s; fresh "
           f"interpreters: port CLI {cli_beam_wall:.6f} s, reference "
@@ -358,9 +527,59 @@ def main() -> int:
           flush=True)
     errors.check("reference")
 
-    print(json.dumps({"kernels": [dict(
-        name="band_align", route="cuda", source=KERNEL_SOURCE,
-        replaces=KERNEL_REPLACES, launches=launches, **report)]}), flush=True)
+    # 6. --calculateFlankScore=1: the whole slice through K2, then a small
+    # region byte for byte against the reference's scalar flank path
+    flank = ("--calculateFlankScore=1",)
+    flank_out = os.path.join(info["workdir"], "port_flank.vcf")
+    wall, counts = run_port(cli_args(info, region, flank_out, flank))
+    errors.check("flank slice")
+    launches["band_align_tb"] = counts["band_align_tb"]
+    if counts["band_align_tb"] <= 0 or counts["flank_pairs_lowered"] <= 0:
+        raise AssertionError(f"flank path missed K2 or changed no score: "
+                             f"{counts}")
+    print(f"flank: whole slice on cuda in this process {wall:.6f} s, "
+          f"{info['n_reads'] / wall:.1f} reads/s, {counts['band_align_tb']} K2 "
+          f"launches, {counts['band_align']} K1 launches, "
+          f"{counts['flank_pairs_lowered']} pair scores lowered by the flank "
+          f"penalty, {len(data_lines(flank_out))} VCF data lines", flush=True)
+    wall, counts, cli_wall, ref_wall, n_lines = compare_three(
+        "--calculateFlankScore=1", info["workdir"], "flank_region",
+        lambda out: cli_args(info, FLANK_REGION, out, flank))
+    errors.check("flank region")
+    if counts["band_align_tb"] <= 0 or counts["flank_pairs_lowered"] <= 0:
+        raise AssertionError(f"flank region missed K2 or changed no score: "
+                             f"{counts}")
+    print(f"flank: {FLANK_REGION}: port in this process {wall:.6f} s "
+          f"({counts['band_align_tb']} K2 launches, "
+          f"{counts['flank_pairs_lowered']} pair scores lowered); fresh interpreters: port "
+          f"CLI {cli_wall:.6f} s, reference {ref_wall:.6f} s; {n_lines} VCF "
+          f"data lines byte-identical", flush=True)
+
+    # 7. --HLATyping=1 on a synthetic typing panel, scored through K1
+    t0 = time.perf_counter()
+    hla_dir = os.path.join(tempfile.gettempdir(), "platypus_tpu_torch_smoke",
+                           f"hla{HLA_ALLELES}x{HLA_REGION_LEN}")
+    hla = build_dataset("hla", hla_dir, HLA_ALLELES, HLA_REGION_LEN,
+                        HLA_COVERAGE)
+    print(f"hla: panel of {HLA_ALLELES} alleles over {hla['region']}, "
+          f"{HLA_COVERAGE}x ({time.perf_counter() - t0:.3f} s to build or "
+          f"load)", flush=True)
+    wall, counts, cli_wall, ref_wall, n_lines = compare_three(
+        "--HLATyping=1", hla_dir, "hla", lambda out: hla_args(hla, out))
+    errors.check("hla")
+    if counts["band_align"] <= 0:
+        raise AssertionError(f"HLA path missed K1: {counts}")
+    print(f"hla: port in this process {wall:.6f} s ({counts['band_align']} K1 "
+          f"launches); fresh interpreters: port CLI {cli_wall:.6f} s, "
+          f"reference {ref_wall:.6f} s; {n_lines} VCF data lines "
+          f"byte-identical", flush=True)
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported by the port")
+
+    print(json.dumps({"kernels": [
+        dict(name=lib, route="cuda", source=f"platypus_tpu_torch/csrc/{lib}.cu",
+             replaces=kernel.replaces, launches=launches[lib], **report[lib])
+        for lib, kernel in align_cuda.KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -5,10 +5,11 @@
 
 Flags and their parsing are the JAX package's (platypus_tpu.cli.build_config).
 Without an explicit device the run needs a CUDA card and fails without
-one.  --nCPU>1, --meshDevices, --distributed, --inferenceService=1,
---HLATyping=1 and --calculateFlankScore=1 raise NotImplementedError;
---usePallas is accepted and ignored (on CUDA the hand-written kernel is
-the path).
+one.  --calculateFlankScore=1 aligns its windows with the traceback
+kernel, and --HLATyping=1 types each region as an HLA region.  --nCPU>1,
+--meshDevices, --distributed and --inferenceService=1 raise
+NotImplementedError; --usePallas is accepted and ignored (on CUDA the
+hand-written kernels are the path).
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
 """Per-window preparation whose scoring reaches the device, torch.
 
 Twins of platypus_tpu/engine/caller.py's prepare_window,
-get_haplotypes_in_window and _beam_search_haplotypes: the only caller
-functions that score reads on a device (the beam search ranks candidate
-haplotypes by aligning subsampled reads).  Here they score through the
-port's score_reads_vs_haplotypes on an explicit device.  Everything else
--- haplotype enumeration and merging, finish_window with its
-f64-exactness guard -- is the JAX package's host code.
+get_haplotypes_in_window, _beam_search_haplotypes and call_window: the
+only caller functions that score reads on a device (the beam search ranks
+candidate haplotypes by aligning subsampled reads; call_window aligns one
+window, for the HLA path).  Here they score through the port's scorer on
+an explicit device.  Everything else -- haplotype enumeration and
+merging, finish_window with its f64-exactness guard -- is the JAX
+package's host code.
 """
 
 from __future__ import annotations
@@ -23,15 +24,16 @@ from platypus_tpu.candidates.normalize import is_haplotype_valid
 from platypus_tpu.candidates.variant import Variant
 from platypus_tpu.candidates.windows import Window
 from platypus_tpu.config import PlatypusConfig, RuntimeState
-from platypus_tpu.engine.caller import (PreparedWindow,
+from platypus_tpu.engine.caller import (PreparedWindow, WindowCall,
                                         _all_subset_haplotypes,
-                                        _subsample_read_rows, _subset_reads)
+                                        _subsample_read_rows, _subset_reads,
+                                        finish_window)
 from platypus_tpu.engine.score import (WindowReads, build_alignment_request,
                                        gather_window_reads)
 from platypus_tpu.io.readbuffer import SampleReadBuffer
 from platypus_tpu.models.haplotype import Haplotype, merge_haplotypes
 
-from .score import score_reads_vs_haplotypes
+from .score import run_alignment_requests, score_reads_vs_haplotypes
 
 
 def _beam_search_haplotypes(
@@ -180,3 +182,21 @@ def prepare_window(
         defer_pairs=defer_pairs,
     )
     return PreparedWindow(window, buffers, all_haps, ref_idx, reads, request)
+
+
+def call_window(
+    window: Window,
+    buffers: Sequence[SampleReadBuffer],
+    ref_file,
+    config: PlatypusConfig,
+    rt: RuntimeState,
+    device: torch.device,
+) -> Optional[WindowCall]:
+    """Single-window convenience wrapper (caller.py:672-686): prepare ->
+    align on `device` -> the JAX package's finish_window.  A failure of
+    the device work raises DeviceError."""
+    prep = prepare_window(window, buffers, ref_file, config, rt, device)
+    if prep is None:
+        return None
+    loglik = run_alignment_requests([prep.request], device)[0]
+    return finish_window(prep, loglik, ref_file, config)

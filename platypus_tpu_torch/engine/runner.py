@@ -1,11 +1,12 @@
 """Top-level entry of the torch port: one process, one device.
 
 Twin of platypus_tpu/engine/runner.py's run_single_process and the
-n_cpu <= 1 branch of run_variant_caller.  Region generation, BAM opening,
-logging setup and the VCF writer are the JAX package's host code.  The
-options the port does not run yet raise NotImplementedError naming the
-flag; none of them falls back to the JAX package.  --usePallas is
-accepted and ignored: on CUDA the hand-written kernel is the path.
+n_cpu <= 1 branch of run_variant_caller, with its --HLATyping branch
+(runner.py:275-298).  Region generation, BAM opening, logging setup and
+the VCF writer are the JAX package's host code.  The options the port
+does not run yet raise NotImplementedError naming the flag; none of them
+falls back to the JAX package.  --usePallas is accepted and ignored: on
+CUDA the hand-written kernels are the path.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from platypus_tpu.engine.runner import (Region, _chrom_sort_key, get_regions,
 from platypus_tpu.io.fasta import FastaFile
 from platypus_tpu.vcfout.writer import VCFWriter
 
+from ..utils.backend import DeviceError
+from .hla import call_hla_variants_in_region
 from .region import (begin_region_inference, finish_region_call,
                      prepare_region_call)
 
@@ -34,8 +37,6 @@ UNSUPPORTED = (
     ("--meshDevices", "mesh_devices", lambda v: v != 0),
     ("--distributed", "distributed", lambda v: v != 0),
     ("--inferenceService", "inference_service", lambda v: v != 0),
-    ("--HLATyping", "hla_typing", lambda v: v != 0),
-    ("--calculateFlankScore", "calculate_flank_score", lambda v: v != 0),
 )
 
 
@@ -55,7 +56,8 @@ def run_single_process(
     device: torch.device,
     append: bool = False,
 ) -> int:
-    """Call all given regions into one VCF file on `device`.
+    """Call all given regions into one VCF file on `device` (with
+    --HLATyping=1, through run_hla_regions).
 
     Three-deep region pipeline (runner.py:176-186): while region k does
     its host work and queues its alignments, region k-1's scores are
@@ -79,6 +81,9 @@ def run_single_process(
     inferring = None  # PreparedRegion whose inference is in flight
     prefetch = None   # next region's BAM decode on a helper thread
     try:
+        if config.hla_typing:
+            return run_hla_regions(config, regions, bam_files, samples_by_bam,
+                                   ref_file, rt, out, device)
         for index, (chrom, start, end) in enumerate(regions):
             if index % 10 == 0:
                 logger.info("Processing region %s:%s-%s", chrom, start, end)
@@ -109,6 +114,29 @@ def run_single_process(
         for bam in bam_files:
             bam.close()
         ref_file.close()
+    return n_written
+
+
+def run_hla_regions(config: PlatypusConfig, regions, bam_files,
+                    samples_by_bam, ref_file, rt, out,
+                    device: torch.device) -> int:
+    """--HLATyping=1: every region in order through the port's
+    call_hla_variants_in_region, writing to `out` (runner.py:275-298).
+    A region that fails on the host is skipped and logged as there; a
+    DeviceError stops the run."""
+    n_written = 0
+    for index, (chrom, start, end) in enumerate(regions):
+        if index % 10 == 0:
+            logger.info("Processing region %s:%s-%s", chrom, start, end)
+        try:
+            n_written += call_hla_variants_in_region(
+                chrom, start, end, bam_files, samples_by_bam, ref_file,
+                config, rt, out, device)
+        except DeviceError:
+            raise  # the region's device work is not contained
+        except Exception:  # noqa: BLE001 — region crash containment
+            logger.exception("Region %s:%s-%s will be skipped",
+                             chrom, start, end)
     return n_written
 
 

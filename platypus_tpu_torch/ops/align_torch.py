@@ -3,12 +3,14 @@
 Twin of platypus_tpu/ops/align_jax.py.  The sentinel conventions carry
 over exactly: haplotype columns pad with 'N', gap-open columns clamp to the
 value at len1-1 (len1 = read_len + 15), read columns pad with '0' and
-4*quality columns with 4*64.  `band_align_padded_reference` is the plain
-version of the CUDA kernel in ops/align_cuda.py: the CPU tests run it, and
-chip_smoke.py holds the kernel against it on the card.
+4*quality columns with 4*64.  `band_align_padded_reference` and
+`band_align_traceback_padded_reference` are the plain versions of the two
+CUDA kernels in ops/align_cuda.py: the CPU tests run them, and
+chip_smoke.py holds each kernel against its plain version on the card.
 
 Scores are integer phred, bit-identical to ops/align_core.band_align_single
-(tests/test_torch_align.py runs the checked-in goldens).
+and, in traceback mode, band_align_traceback (tests/test_torch_align.py
+runs the checked-in goldens).
 """
 
 from __future__ import annotations
@@ -172,6 +174,105 @@ def band_align_padded_reference(hap_cols, go4_cols, read_cols, qual4_cols,
         i2[:, -1] = POS_INF
 
     return (minsc + 0x8000) >> 2
+
+
+def _labels(m, i, d):
+    """Traceback-mode label word of a phase (M in bits 0-1, I in 2-3, D in
+    6-7: each state's predecessor label) and the states with their low two
+    bits stamped with their own label (M=..00, I=..01, D=..11)."""
+    word = (m & 3) | ((i & 3) << 2) | ((d & 3) << 6)
+    return word, m & ~3, (i & ~3) | 1, (d & ~3) | 3
+
+
+def band_align_traceback_padded_reference(hap_cols, go4_cols, read_cols,
+                                          qual4_cols, read_len,
+                                          gapextend: int = 3,
+                                          nucprior: int = 2):
+    """Plain torch traceback-mode DP (the contract of
+    align_pallas.band_align_traceback_padded_pallas) on the padded column
+    tensors of band_align_padded_reference.  Returns (score [B], exit
+    index [B], bp [(L2+8)*8, B]), all int32: the traceback-mode score,
+    2*(read_len+row)+phase of the first strict minimum exit cell (rows
+    ascending, even phase before odd), and per step the 8 packed label
+    words (even phase in bits 0-7, odd phase in bits 8-15)."""
+    i32 = torch.int32
+    hap_cols = hap_cols.to(i32)
+    go4_cols = go4_cols.to(i32)
+    read_cols = read_cols.to(i32)
+    qual4_cols = qual4_cols.to(i32)
+    read_len = read_len.to(i32)
+    n_steps, B = read_cols.shape
+    dev = read_cols.device
+    ge = 4 * gapextend
+    npr = 4 * nucprior
+    lane = torch.arange(N_LANES, dtype=i32, device=dev)[None, :]
+    pos_inf_col = torch.full((B,), POS_INF, dtype=i32, device=dev)
+    zero_col = torch.zeros((B,), dtype=i32, device=dev)
+
+    m1 = torch.full((B, N_LANES), POS_INF, dtype=i32, device=dev)
+    i1, d1, m2, i2, d2, val_e, val_o = (m1.clone() for _ in range(7))
+    s1w = hap_cols[:N_LANES].T
+    gow = go4_cols[:N_LANES].T
+    nq = torch.where(s1w == _N_CHAR, 0, POS_INF).to(i32)
+    s2w = torch.full((B, N_LANES), POS_INF, dtype=i32, device=dev)
+    q2w = torch.full((B, N_LANES), 64 * 4, dtype=i32, device=dev)
+    bp = torch.empty((n_steps * N_LANES, B), dtype=i32, device=dev)
+
+    for s2 in range(n_steps):
+        hap_c = hap_cols[N_LANES + s2]
+        go_c = go4_cols[N_LANES + s2]
+        exit_mask = lane == (s2 - read_len)[:, None]  # <= 1 row per pair
+
+        # even phase --------------------------------------------------------
+        s2w = _shift_up(s2w, read_cols[s2])
+        q2w = _shift_up(q2w, qual4_cols[s2])
+        if s2 < N_LANES:
+            init = lane == s2
+            m1 = torch.where(init, -0x8000, m1)
+            m2 = torch.where(init, -0x8000, m2)
+
+        m1 = torch.minimum(m1, torch.minimum(i1, d1))
+        val_e = torch.where(exit_mask, m1, val_e)
+
+        sub = torch.minimum(torch.where(s2w == s1w, 0, q2w), nq)
+        m1 = m1 + sub
+        d1_new = torch.minimum(d2 + ge, torch.minimum(m2, i2)
+                               + _shift_down(gow, zero_col))
+        d1 = _shift_up(d1_new, pos_inf_col)
+        i1 = torch.minimum(i2 + ge, m2 + gow) + npr
+        bp_even, m1, i1, d1 = _labels(m1, i1, d1)
+
+        # odd phase ---------------------------------------------------------
+        s1w = _shift_down(s1w, hap_c)
+        nq = _shift_down(nq, torch.where(hap_c == _N_CHAR, 0, POS_INF).to(i32))
+        gow = _shift_down(gow, go_c)
+
+        m2 = torch.minimum(m2, torch.minimum(i2, d2))
+        val_o = torch.where(exit_mask, m2, val_o)
+
+        sub2 = torch.minimum(torch.where(s2w == s1w, 0, q2w), nq)
+        m2 = m2 + sub2
+        d2 = torch.minimum(d1 + ge, torch.minimum(m1, i1) + gow)
+        i2 = torch.minimum(_shift_down(i1, pos_inf_col) + ge,
+                           _shift_down(m1, pos_inf_col) + gow) + npr
+        i2[:, -1] = POS_INF
+        bp_odd, m2, i2, d2 = _labels(m2, i2, d2)
+
+        bp[s2 * N_LANES : (s2 + 1) * N_LANES] = (bp_even | (bp_odd << 8)).T
+
+    # First strict minimum over (row ascending, even before odd), as the
+    # scalar loop's `if score < minscore` resolves it.
+    row_min = torch.minimum(val_e, val_o)
+    row_phase = (val_o < val_e).to(i32)
+    best = row_min[:, 0]
+    best_r = torch.zeros((B,), dtype=i32, device=dev)
+    best_p = row_phase[:, 0]
+    for r in range(1, N_LANES):
+        upd = row_min[:, r] < best
+        best = torch.where(upd, row_min[:, r], best)
+        best_r = torch.where(upd, r, best_r)
+        best_p = torch.where(upd, row_phase[:, r], best_p)
+    return (best + 0x8000) >> 2, 2 * (read_len + best_r) + best_p, bp
 
 
 def band_align_batch(hap_seg, gapopen_seg, read, qual, read_len,

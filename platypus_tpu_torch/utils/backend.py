@@ -16,9 +16,10 @@ import torch
 
 class DeviceError(RuntimeError):
     """Device work failed inside a host stage that contains crashes (the
-    beam search scores reads from inside a window's preparation).  The
-    containment re-raises it: a window whose device work failed stops the
-    run instead of vanishing from the VCF."""
+    beam search scores reads from inside a window's preparation; the HLA
+    path calls windows and scores regions inside its window and region
+    containment).  Each containment re-raises it: a window or region whose
+    device work failed stops the run instead of vanishing from the VCF."""
 
 
 def require_cuda() -> torch.device:

@@ -1,16 +1,18 @@
-"""The torch port's banded-alignment inputs and plain DP
+"""The torch port's banded-alignment inputs and plain DPs
 (platypus_tpu_torch/ops/align_torch.py) against the checked-in reference
-goldens, the JAX scan kernel and the Pallas kernel (interpret mode on the
-CPU).  Scores are integers: every comparison is bitwise."""
+goldens, the JAX scan kernel and the Pallas kernels (interpret mode on the
+CPU): the scoring DP and its traceback mode.  Scores, exit indices and
+label words are integers: every comparison is bitwise."""
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import golden_groups
+from chip_smoke import flank_golden_mismatches, flank_goldens, golden_groups
 from platypus_tpu.ops.align_jax import (_gather_pad_device, band_align_padded,
                                         pad_alignment_inputs)
-from platypus_tpu.ops.align_pallas import band_align_padded_pallas
+from platypus_tpu.ops.align_pallas import (band_align_padded_pallas,
+                                           band_align_traceback_padded_pallas)
 from platypus_tpu_torch.ops import align_cuda, align_torch
 
 
@@ -51,7 +53,7 @@ def test_plain_dp_matches_goldens():
 
 def test_cuda_wrapper_on_cpu_tensors_runs_plain_dp():
     """A CPU tensor reaches the plain version; the kernel counter stays."""
-    before = align_cuda.LAUNCHES
+    before = dict(align_cuda.LAUNCHES)
     for ge, npr, inputs, want in golden_groups():
         padded = align_torch.pad_alignment_inputs(*inputs)
         got = align_cuda.band_align_padded(*padded, gapextend=ge, nucprior=npr)
@@ -106,3 +108,47 @@ def test_gather_pad_matches_jax(overhang):
     np.testing.assert_array_equal(
         align_torch.band_align_padded_reference(*got).numpy(),
         np.asarray(band_align_padded(*want)))
+
+
+@pytest.mark.parametrize("seed,B,L2,n_frac", [
+    (13, 200, 40, 0.03),   # B not a multiple of 128, 'N' bases
+    (19, 200, 100, 0.01),  # main-path read length
+])
+def test_traceback_dp_matches_pallas(seed, B, L2, n_frac):
+    """band_align_traceback_padded_reference == the Pallas traceback kernel
+    (interpret mode, as tests/test_align.py runs it): score, exit index and
+    the whole [(L2+8)*8, B] label block, mixed read lengths."""
+    inputs = _random_case(seed, B, L2, n_frac, mixed=True)
+    want = [np.asarray(x) for x in band_align_traceback_padded_pallas(
+        *pad_alignment_inputs(*inputs))]
+    got = align_torch.band_align_traceback_padded_reference(
+        *align_torch.pad_alignment_inputs(*inputs))
+    assert [g.shape for g in got] == [(B,), (B,), ((L2 + 8) * 8, B)]
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_traceback_dp_reproduces_flank_goldens():
+    """The flank goldens through the plain traceback DP, then the JAX
+    package's host backtrace and flank penalty: score, alignment rows,
+    first position and flank score all as checked in."""
+    cases, inputs = flank_goldens()
+    score, idx, bp = align_torch.band_align_traceback_padded_reference(
+        *align_torch.pad_alignment_inputs(*inputs))
+    assert len(cases) >= 100
+    assert flank_golden_mismatches(cases, score.numpy(), idx.numpy(),
+                                   bp.numpy()) == []
+
+
+def test_traceback_wrapper_on_cpu_tensors_runs_plain_dp():
+    """A CPU tensor reaches the plain traceback DP; no launch is counted."""
+    cases, inputs = flank_goldens()
+    padded = align_torch.pad_alignment_inputs(*inputs)
+    before = dict(align_cuda.LAUNCHES)
+    got = align_cuda.band_align_traceback_padded(*padded)
+    want = align_torch.band_align_traceback_padded_reference(*padded)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    np.testing.assert_array_equal(got[0].numpy(), [c["score"] for c in cases])
+    assert align_cuda.LAUNCHES == before

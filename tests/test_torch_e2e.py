@@ -155,8 +155,7 @@ assert "jax" not in sys.modules
 
 
 @pytest.mark.parametrize("flag", ["--nCPU=2", "--meshDevices=-1",
-                                  "--distributed=1", "--inferenceService=1",
-                                  "--HLATyping=1", "--calculateFlankScore=1"])
+                                  "--distributed=1", "--inferenceService=1"])
 def test_unsupported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag.split("=")[0]):
         port_cli.main(["callVariants", "--bamFiles=x.bam", "--refFile=x.fa",

@@ -1,6 +1,7 @@
 """Import hygiene of the torch port: it never imports jax, and its CUDA
 wrapper imports on a machine with no nvcc, no triton and no card."""
 
+import ast
 import os
 import pkgutil
 import re
@@ -34,6 +35,7 @@ def test_importing_every_module_leaves_jax_unloaded():
     mods = _modules()
     assert "platypus_tpu_torch.cli" in mods
     assert "platypus_tpu_torch.ops.align_cuda" in mods
+    assert "platypus_tpu_torch.engine.hla" in mods
     proc = _run("import importlib, sys\n"
                 f"for m in {mods!r}: importlib.import_module(m)\n"
                 "assert 'jax' not in sys.modules, 'jax was imported'\n",
@@ -105,3 +107,44 @@ def test_kernel_wrapper_rejects_other_devices():
     t = torch.zeros((4, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         align_cuda.band_align_padded(t, t, t, t, t[0])
+
+
+def test_traceback_wrapper_rejects_other_devices():
+    t = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        align_cuda.band_align_traceback_padded(t, t, t, t, t[0])
+
+
+def test_kernel_build_names_every_source():
+    """Each kernel library has its source in the package, and its build
+    path is keyed by that source and the flags."""
+    paths = {name: align_cuda.library_path(name) for name in align_cuda.KERNELS}
+    assert set(paths) == {"band_align", "band_align_tb"}
+    for name, path in paths.items():
+        assert os.path.exists(align_cuda.source(name))
+        assert os.path.basename(path).startswith(f"lib{name}_")
+    assert len(set(paths.values())) == 2
+
+
+def test_kernel_table_names_the_tpu_kernels():
+    """Each kernel library's `replaces` is the def line of a Pallas kernel."""
+    for name, kernel in align_cuda.KERNELS.items():
+        path, line = kernel.replaces.split(":")
+        with open(os.path.join(REPO, path)) as fh:
+            text = fh.read().splitlines()[int(line) - 1]
+        assert re.match(r"def _band_align\w*_kernel\(", text), (name, text)
+
+
+def test_chip_smoke_imports_no_jax_package():
+    """chip_smoke.py imports neither jax nor the JAX package; it reaches
+    the JAX package's host code only through the port and child processes."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    modules = [alias.name for node in ast.walk(tree)
+               if isinstance(node, ast.Import) for alias in node.names]
+    modules += [node.module for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.module]
+    assert "platypus_tpu_torch.ops" in modules
+    for mod in modules:
+        root = mod.split(".")[0]
+        assert root not in ("jax", "platypus_tpu", "synth", "scaling_bench"), mod

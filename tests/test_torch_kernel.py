@@ -1,6 +1,7 @@
-"""K1 (platypus_tpu_torch/csrc/band_align.cu) on the card, against its plain
-torch version.  These tests need a CUDA device and skip without one; this
-file imports no jax, so on a machine with a card and without jax run it as
+"""K1 (platypus_tpu_torch/csrc/band_align.cu) and K2, its traceback mode
+(csrc/band_align_tb.cu), on the card, against their plain torch versions.
+These tests need a CUDA device and skip without one; this file imports no
+jax, so on a machine with a card and without jax run it as
 
     python -m pytest --noconftest tests/test_torch_kernel.py -m cuda
 """
@@ -8,7 +9,8 @@ file imports no jax, so on a machine with a card and without jax run it as
 import pytest
 import torch
 
-from chip_smoke import golden_groups, random_pairs
+from chip_smoke import (flank_golden_mismatches, flank_goldens,
+                        golden_groups, random_pairs)
 from platypus_tpu_torch.ops import align_cuda, align_torch
 
 
@@ -40,10 +42,11 @@ def test_kernel_matches_plain_dp_on_card(cuda_device):
 def test_kernel_counts_each_launch(cuda_device):
     padded = align_torch.pad_alignment_inputs(*random_pairs(4, 300, 64),
                                               device=cuda_device)
-    before = align_cuda.LAUNCHES
+    before = dict(align_cuda.LAUNCHES)
     align_cuda.band_align_padded(*padded)
     align_cuda.band_align_padded(*padded)
-    assert align_cuda.LAUNCHES == before + 2
+    before["band_align"] += 2
+    assert align_cuda.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -57,3 +60,45 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
                                      qual[:, ::2], rlen[::2])
     with pytest.raises(ValueError, match="int32 on"):
         align_cuda.band_align_padded(hap.cpu(), go, read, qual, rlen)
+
+
+@pytest.mark.cuda
+def test_tb_kernel_matches_plain_dp_on_card(cuda_device):
+    """K2's score, exit index and label block bitwise on the flank goldens
+    (whose alignments the host backtrace then recovers) and on B=2000
+    mixed-length pairs with 'N' bases."""
+    cases, golden_inputs = flank_goldens()
+    for inputs in (golden_inputs, random_pairs(6, 2000, 100)):
+        padded = align_torch.pad_alignment_inputs(*inputs, device=cuda_device)
+        got = align_cuda.band_align_traceback_padded(*padded)
+        want = align_torch.band_align_traceback_padded_reference(*padded)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    got = align_cuda.band_align_traceback_padded(*align_torch.pad_alignment_inputs(
+        *golden_inputs, device=cuda_device))
+    assert flank_golden_mismatches(cases, *(t.cpu().numpy() for t in got)) == []
+
+
+@pytest.mark.cuda
+def test_tb_kernel_counts_each_launch(cuda_device):
+    padded = align_torch.pad_alignment_inputs(*random_pairs(7, 300, 64),
+                                              device=cuda_device)
+    before = dict(align_cuda.LAUNCHES)
+    align_cuda.band_align_traceback_padded(*padded)
+    align_cuda.band_align_traceback_padded(*padded)
+    before["band_align_tb"] += 2
+    assert align_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_tb_kernel_wrapper_rejects_bad_inputs(cuda_device):
+    hap, go, read, qual, rlen = align_torch.pad_alignment_inputs(
+        *random_pairs(8, 256, 32), device=cuda_device)
+    tb = align_cuda.band_align_traceback_padded
+    with pytest.raises(ValueError, match="int32"):
+        tb(hap, go, read.long(), qual, rlen)
+    with pytest.raises(ValueError, match="contiguous"):
+        tb(hap[:, ::2], go[:, ::2], read[:, ::2], qual[:, ::2], rlen[::2])
+    with pytest.raises(ValueError, match="int32 on"):
+        tb(hap, go, read, qual, rlen.cpu())

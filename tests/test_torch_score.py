@@ -1,6 +1,9 @@
 """The torch port's batched pair alignment (platypus_tpu_torch/engine/score.py)
 against the JAX package's on a synthetic region: the per-window [H, R]
-float64 log-likelihood matrices must be np.array_equal."""
+float64 log-likelihood matrices must be np.array_equal, and in flank mode
+every pair's flank-corrected score equals the JAX package's scalar path."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -76,7 +79,7 @@ def test_lane_chunking_and_padding(region_requests, monkeypatch):
     matrices must not change, and no kernel launch is counted on CPU."""
     want = port_score.dispatch_alignment_requests(region_requests, CPU).finalize()
     monkeypatch.setattr(port_score, "LANE_BUCKETS", (16, 64))
-    before = align_cuda.LAUNCHES
+    before = dict(align_cuda.LAUNCHES)
     pending = port_score.dispatch_alignment_requests(region_requests, CPU)
     assert sum(len(chunks) for _, _, chunks in pending.groups) > 4
     got = pending.finalize()
@@ -93,13 +96,71 @@ def test_score_reads_vs_haplotypes_matches_jax_package(region_requests):
     assert np.array_equal(got, want)
 
 
-def test_flank_requests_raise(region_requests):
-    import dataclasses
+@pytest.fixture(scope="module")
+def flank_requests(region_requests):
+    """Flank-mode copies of the first live windows' requests (> 300 pairs;
+    the JAX package's scalar flank path costs ~6 ms per pair)."""
+    out = []
+    for req in region_requests:
+        if req is not None and req.n_pairs():
+            out.append(dataclasses.replace(req, calculate_flank_score=True))
+        if sum(r.n_pairs() for r in out) > 300:
+            return out
+    raise AssertionError("the region has too few pairs")
 
-    req = next(r for r in region_requests if r is not None)
-    with pytest.raises(NotImplementedError, match="calculateFlankScore"):
-        port_score.dispatch_alignment_requests(
-            [dataclasses.replace(req, calculate_flank_score=True)], CPU)
+
+def test_flank_dispatch_matches_jax_scalar_path(flank_requests, monkeypatch):
+    """The port's flank dispatch (plain traceback DP + host backtrace) ==
+    the JAX package's _scalar_flank_scores pair for pair, and the [H, R]
+    matrices of both finalizes are equal; the pairs the flank penalty
+    lowered are counted."""
+    monkeypatch.setenv("PLATYPUS_TPU_DEVICE_FLANK", "0")
+    jax_pending = jax_score.dispatch_alignment_requests(flank_requests)
+    want = jax_pending.finalize()
+    pending = port_score.dispatch_alignment_requests(flank_requests, CPU)
+    assert len(pending.flank_groups) == 1 and not pending.groups
+    lowered = port_score.metrics.counters["flank_pairs_lowered"]
+    got = pending.finalize()
+    lowered = port_score.metrics.counters["flank_pairs_lowered"] - lowered
+    assert 0 < lowered <= sum(r.n_pairs() for r in flank_requests)
+    plain = port_score.dispatch_alignment_requests(
+        [dataclasses.replace(r, calculate_flank_score=False)
+         for r in flank_requests], CPU)
+    plain.finalize()
+    n_changed = 0
+    for req, plain_req in zip(flank_requests, plain.requests):
+        scalar = jax_score._scalar_flank_scores(req, 3, 2)
+        np.testing.assert_array_equal(pending.pair_scores[id(req)], scalar)
+        np.testing.assert_array_equal(jax_pending.pair_scores[id(req)], scalar)
+        n_changed += int((scalar != plain.pair_scores[id(plain_req)]).sum())
+    assert n_changed > 0  # the flank correction did something
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_flank_chunks_under_the_byte_bound(flank_requests, region_requests,
+                                           monkeypatch):
+    """A label-block bound below one lane chunk cuts the flank pairs into
+    many K2 chunks; flank and plain requests mixed in one dispatch give
+    the matrices of separate dispatches, and no launch is counted on the
+    CPU."""
+    plain_reqs = [r for r in region_requests[len(flank_requests):]
+                  if r is not None][:3]
+    want = (port_score.dispatch_alignment_requests(flank_requests, CPU).finalize()
+            + port_score.dispatch_alignment_requests(plain_reqs, CPU).finalize())
+    L2 = flank_requests[0].sub_seq.shape[1]
+    monkeypatch.setattr(port_score, "FLANK_BP_BYTES", 50 * (L2 + 8) * 8 * 4)
+    before = dict(align_cuda.LAUNCHES)
+    pending = port_score.dispatch_alignment_requests(
+        flank_requests + plain_reqs, CPU)
+    chunks = [c for _, group_chunks in pending.flank_groups for c in group_chunks]
+    assert len(chunks) > 5
+    assert max(sl.stop - sl.start for _, sl in chunks) == 50
+    got = pending.finalize()
+    assert align_cuda.LAUNCHES == before
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
 
 
 def test_device_inference_matches_jax_package(region):
