@@ -37,7 +37,24 @@ without either it exits non-zero before printing any result.  Phases:
 7. HLA: --HLATyping=1 on a synthetic typing panel (160 alleles of a 2 kb
    region on contig 6, 30x of 100 bp reads from two of them), which
    scores through K1: in this process, in a fresh interpreter and
-   against the CPU-pinned reference, byte-identical.
+   against the CPU-pinned reference, byte-identical;
+8. pool: the slice with --nCPU=4 (auto policy: four host workers and at
+   most one device worker) through the port's CLI and through the
+   CPU-pinned reference's, byte-identical to each other and to the
+   single-process lines; prints both walls and the claim counts;
+9. hybrid: --nCPU=2 --tpuWorkers=1 with the settle gate off and
+   --calculateFlankScore=1 on HYBRID_REGION, where the host workers take
+   the scalar flank path (~6 ms per pair) while the device worker runs
+   K2: the device worker must call regions and launch K2 there (its own
+   counts, reported back through the pool's summary line), and the lines
+   must equal the CPU-pinned reference's;
+10. service: --nCPU=2 --tpuWorkers=0 --inferenceService=1 on the slice:
+   the device-owner service must serve windows with no error, and the
+   lines must equal the single-process reference's;
+11. resume: the single-process slice output cut after its middle data
+   line, continued by `continueCalling` through the port's CLI and the
+   CPU-pinned reference's: both continuations byte-identical, their data
+   lines those of the full run.
 
 Any ERROR record on the `platypus_tpu` logger fails the run (every
 crash-containment path logs there).  The last two lines of stdout are the
@@ -64,6 +81,7 @@ TIMED_B, TIMED_L2 = 16384, 100
 MAIN_SHAPES = [(16384, 100), (16384, 128), (2048, 100), (2048, 128),
                (2000, 100), (2000, 128)]
 FLANK_REGION = "chr20:1000-21000"
+HYBRID_REGION, HYBRID_SHARD = "chr20:1000-101000", 5000
 HLA_ALLELES, HLA_REGION_LEN, HLA_COVERAGE = 160, 2000, 30
 
 
@@ -376,10 +394,10 @@ def run_cli(package, argv, env=None):
     return wall
 
 
-def run_port_cli(argv, out):
+def run_port_cli(argv, out, env=None):
     """The port's CLI on cuda in a fresh interpreter; fails on any ERROR
     line of its log (`out`.log).  Returns its wall seconds."""
-    wall = run_cli("platypus_tpu_torch", argv)
+    wall = run_cli("platypus_tpu_torch", argv, env=env)
     with open(f"{out}.log") as fh:
         errors = [line for line in fh if " - ERROR - " in line
                   or " - CRITICAL - " in line]
@@ -388,15 +406,147 @@ def run_port_cli(argv, out):
     return wall
 
 
+# The JAX package pinned to the CPU.  PLATYPUS_TPU_DEVICE_FLANK=0 keeps its
+# --calculateFlankScore path from importing jax, which this host may not have.
+REFERENCE_ENV = dict(PLATYPUS_TPU_PLATFORM="cpu", JAX_PLATFORMS="cpu",
+                     PLATYPUS_TPU_DEVICE_FLANK="0")
+
+
 def run_reference(argv):
     """The JAX package's CLI pinned to the CPU, in a fresh interpreter;
-    returns its wall seconds.  PLATYPUS_TPU_DEVICE_FLANK=0 keeps its
-    --calculateFlankScore path from importing jax, which this host may
-    not have."""
-    env = dict(os.environ, PLATYPUS_TPU_PLATFORM="cpu", JAX_PLATFORMS="cpu",
-               PLATYPUS_TPU_DEVICE_FLANK="0")
+    returns its wall seconds."""
     return run_cli("platypus_tpu", [argv[0], "--deviceInference=0", *argv[1:]],
-                   env=env)
+                   env=dict(os.environ, **REFERENCE_ENV))
+
+
+def pool_summary(out):
+    """The port pool's summary line (engine/runner.py run_pool) from its
+    log, `out`.log: claim counts (host, device, rescued), whether the
+    device worker was terminated, and the device worker's own counts
+    (regions, launches per kernel library, fused-inference batches)."""
+    with open(f"{out}.log") as fh:
+        lines = [line for line in fh if " - pool: " in line]
+    if not lines:
+        raise AssertionError(f"no pool summary in {out}.log")
+    return json.loads(lines[-1].split(" - pool: ", 1)[1])
+
+
+def check_pool(info, region, smi):
+    """Phase 8: the slice through the port's pool and the reference's,
+    both at --nCPU=4, against the single-process reference lines."""
+    workdir = info["workdir"]
+    extra = ("--nCPU=4",)
+    out = os.path.join(workdir, "port_pool.vcf")
+    wall = run_port_cli(cli_args(info, region, out, extra), out)
+    summary = pool_summary(out)
+    ref_out = os.path.join(workdir, "reference_pool.vcf")
+    ref_wall = run_reference(cli_args(info, region, ref_out, extra))
+    n_lines = check_same_calls("pool", os.path.join(workdir, "reference.vcf"),
+                               out, ref_out)
+    if summary["host"] + summary["device"] + summary["rescued"] <= 0:
+        raise AssertionError(f"pool: no region claimed: {summary}")
+    print(f"pool: --nCPU=4 on {smi}: port CLI {wall:.6f} s, CPU-pinned "
+          f"reference CLI {ref_wall:.6f} s; port claims host "
+          f"{summary['host']} / device {summary['device']} / rescued "
+          f"{summary['rescued']}; the device worker called "
+          f"{summary['regions']} regions ({summary['band_align']} K1 launches) "
+          f"and was terminated {summary['terminated']} times; "
+          f"{n_lines} VCF data lines byte-identical to each other and to "
+          f"the single-process reference", flush=True)
+
+
+def check_hybrid(info, smi):
+    """Phase 9: the device worker must call flank regions through K2 while
+    the host workers take the scalar flank path."""
+    workdir = info["workdir"]
+    shard = f"--bufferSize={HYBRID_SHARD}"
+    out = os.path.join(workdir, "port_hybrid.vcf")
+    wall = run_port_cli(
+        cli_args(info, HYBRID_REGION, out, ("--calculateFlankScore=1", shard,
+                                            "--nCPU=2", "--tpuWorkers=1")),
+        out, env=dict(os.environ, PLATYPUS_TPU_DEVICE_SETTLE="0"))
+    summary = pool_summary(out)
+    if summary["regions"] < 1 or summary["band_align_tb"] < 1:
+        raise AssertionError(f"hybrid: the device worker called no region "
+                             f"through K2: {summary}")
+    ref_out = os.path.join(workdir, "reference_hybrid.vcf")
+    ref_wall = run_reference(cli_args(info, HYBRID_REGION, ref_out,
+                                      ("--calculateFlankScore=1", shard,
+                                       "--nCPU=4")))
+    n_lines = check_same_calls("hybrid", ref_out, out)
+    print(f"hybrid: {HYBRID_REGION} --calculateFlankScore=1 {shard} on {smi}: "
+          f"port CLI --nCPU=2 --tpuWorkers=1 {wall:.6f} s (claims host "
+          f"{summary['host']} / device {summary['device']} / rescued "
+          f"{summary['rescued']}; the device worker called "
+          f"{summary['regions']} regions with {summary['band_align_tb']} K2 and "
+          f"{summary['band_align']} K1 launches); CPU-pinned reference CLI "
+          f"--nCPU=4 {ref_wall:.6f} s; {n_lines} VCF data lines "
+          f"byte-identical", flush=True)
+
+
+def check_service(info, region, smi):
+    """Phase 10: two host workers whose fused inference the device-owner
+    service runs on the card."""
+    workdir = info["workdir"]
+    out = os.path.join(workdir, "port_service.vcf")
+    stats_path = os.path.join(workdir, "service_stats.json")
+    if os.path.exists(stats_path):
+        os.remove(stats_path)
+    env = dict(os.environ, PLATYPUS_TPU_SERVICE_WAIT_READY="120",
+               PLATYPUS_TPU_SERVICE_GRACE="60",
+               PLATYPUS_TPU_SERVICE_STATS=stats_path)
+    wall = run_port_cli(
+        cli_args(info, region, out, ("--nCPU=2", "--tpuWorkers=0",
+                                     "--inferenceService=1")), out, env=env)
+    with open(stats_path) as fh:
+        stats = json.load(fh)
+    if (stats["backend"] != "cuda" or stats["requests"] <= 0
+            or stats["windows"] <= 0 or stats["errors"] != 0):
+        raise AssertionError(f"service: served nothing on the card: {stats}")
+    n_lines = check_same_calls("service", os.path.join(workdir, "reference.vcf"),
+                               out)
+    print(f"service: --nCPU=2 --inferenceService=1 on {smi}: port CLI "
+          f"{wall:.6f} s, {stats['requests']} requests, {stats['windows']} "
+          f"windows served, {stats['errors']} errors; {n_lines} VCF data "
+          f"lines byte-identical", flush=True)
+
+
+def check_resume(info, smi):
+    """Phase 11: continueCalling on the single-process slice output cut
+    after its middle data line, through the port and the reference."""
+    workdir = info["workdir"]
+    full = os.path.join(workdir, "port.vcf")
+    with open(full) as fh:
+        lines = fh.readlines()
+    data = [i for i, line in enumerate(lines) if not line.startswith("#")]
+    cut = lines[: data[len(data) // 2] + 1]
+    done = {}
+    for who in ("port", "reference"):
+        partial = os.path.join(workdir, f"resume_{who}.vcf")
+        with open(partial, "w") as fh:
+            fh.writelines(cut)
+        argv = ["continueCalling", f"--vcfFile={partial}"]
+        if who == "port":
+            wall = run_port_cli(argv, full)
+        else:
+            wall = run_cli("platypus_tpu", argv,
+                           env=dict(os.environ, **REFERENCE_ENV))
+        with open(os.path.join(workdir, f"resume_{who}_ContinuedFromFailed"
+                                        f"Process.vcf")) as fh:
+            done[who] = (wall, fh.read())
+    if done["port"][1] != done["reference"][1]:
+        raise AssertionError("resume: the port's continuation differs from "
+                             "the reference's")
+    resumed = [line for line in done["port"][1].splitlines(True)
+               if not line.startswith("#")]
+    if resumed != data_lines(full):
+        raise AssertionError("resume: the continuation's data lines differ "
+                             "from the full run's")
+    print(f"resume: cut after data line {len(data) // 2 + 1} of {len(data)}; "
+          f"continueCalling on {smi}: port CLI {done['port'][0]:.6f} s, "
+          f"CPU-pinned reference CLI {done['reference'][0]:.6f} s; "
+          f"continuations byte-identical, {len(resumed)} data lines equal "
+          f"to the full run's", flush=True)
 
 
 def check_same_calls(what, ref_out, *port_outs):
@@ -573,6 +723,14 @@ def main() -> int:
           f"launches); fresh interpreters: port CLI {cli_wall:.6f} s, "
           f"reference {ref_wall:.6f} s; {n_lines} VCF data lines "
           f"byte-identical", flush=True)
+
+    # 8-11. the multi-process run and continueCalling, each in fresh
+    # interpreters (this process holds a CUDA context)
+    check_pool(info, region, smi)
+    check_hybrid(info, smi)
+    check_service(info, region, smi)
+    check_resume(info, smi)
+    errors.check("pool, hybrid, service, resume")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported by the port")
 

@@ -1,29 +1,34 @@
-"""Command-line interface of the torch port: `callVariants` only.
+"""Command-line interface of the torch port: `callVariants` and
+`continueCalling`.
 
     python -m platypus_tpu_torch.cli callVariants --bamFiles=... --refFile=... -o out.vcf
+    python -m platypus_tpu_torch.cli continueCalling --vcfFile=partial.vcf
     platypus-tpu-torch callVariants ...
 
 Flags and their parsing are the JAX package's (platypus_tpu.cli.build_config).
 Without an explicit device the run needs a CUDA card and fails without
 one.  --calculateFlankScore=1 aligns its windows with the traceback
-kernel, and --HLATyping=1 types each region as an HLA region.  --nCPU>1,
---meshDevices, --distributed and --inferenceService=1 raise
-NotImplementedError; --usePallas is accepted and ignored (on CUDA the
-hand-written kernels are the path).
+kernel, and --HLATyping=1 types each region as an HLA region.  --nCPU>1
+runs the pool of engine/runner.py (host workers, at most one device
+worker, or with --inferenceService=1 the device-owner service);
+--meshDevices and --distributed raise NotImplementedError; --usePallas is
+accepted and ignored (on CUDA the hand-written kernels are the path).
+
+The engine (and torch) are imported inside main(): the pool spawns its
+workers, a spawned child re-imports this module as its __main__, and the
+host workers must not pay for torch.
 """
 
 from __future__ import annotations
 
+import argparse
 import logging
 import sys
 from typing import List, Optional
 
 from platypus_tpu.cli import build_config
 
-from .engine.runner import run_variant_caller
-from .utils.backend import resolve_device
-
-USAGE = "usage: platypus-tpu-torch callVariants [options]"
+USAGE = "usage: platypus-tpu-torch {callVariants,continueCalling} [options]"
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
@@ -36,10 +41,18 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         print(USAGE)
         return 0 if argv else 2
     command, rest = argv[0], argv[1:]
-    if command != "callVariants":
-        print(f"platypus-tpu-torch supports only callVariants, not "
-              f"{command!r}; use platypus-tpu for it")
+    if command not in ("callVariants", "continueCalling"):
+        print(f"platypus-tpu-torch supports callVariants and continueCalling, "
+              f"not {command!r}; use platypus-tpu for it")
         return 2
+    from .engine.runner import continue_calling, run_variant_caller
+    from .utils.backend import resolve_device
+
+    if command == "continueCalling":
+        parser = argparse.ArgumentParser(prog="platypus-tpu-torch continueCalling")
+        parser.add_argument("--vcfFile", required=True)
+        continue_calling(parser.parse_args(rest).vcfFile, resolve_device(device))
+        return 0
     config = build_config(rest)
     run_variant_caller(config, resolve_device(device))
     return 0

@@ -5,10 +5,12 @@ begin_region_inference and finish_region_call for one device, without
 the mesh and device-service branches.  The host work (read loading and
 QC, candidate generation, windowing, and the per-window output loop) is
 the JAX package's code.  The host-side crash containment of a region load
-and of a window's preparation stays as it is there; the device stages
-have no `except` around them, so a device failure propagates.  The beam
-search's device scoring runs inside a window's preparation and raises
-DeviceError, which the window containment re-raises.
+and of a window's preparation stays as it is there.  Every device stage
+(the alignment dispatch, its finalize, the fused inference's dispatch and
+its gather) runs inside device_stage, so whatever it raises leaves as
+DeviceError, which the window containment here and the runner's region
+containment re-raise.  The beam search's device scoring runs inside a
+window's preparation and raises DeviceError too.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from platypus_tpu.io.bam import BamFile
 from platypus_tpu.utils.observability import GLOBAL_METRICS as metrics
 
 from ..parallel.batch import dispatch_device_inference
-from ..utils.backend import DeviceError
+from ..utils.backend import DeviceError, device_stage
 from .caller import prepare_window
 from .score import dispatch_alignment_requests
 
@@ -146,7 +148,8 @@ def prepare_region_call(
     metrics.count("windows", len(windows))
     metrics.count("alignment_pairs",
                   sum(p.request.n_pairs() for _, p in live if p.request is not None))
-    with metrics.timer("device_dispatch"):
+    with metrics.timer("device_dispatch"), device_stage(
+            f"alignment dispatch of {chrom}:{start}-{end} on {device}"):
         pending = dispatch_alignment_requests([p.request for _, p in live], device)
 
     return PreparedRegion(chrom=chrom, start=start, end=end, buffers=buffers,
@@ -169,13 +172,16 @@ def begin_region_inference(state, config: PlatypusConfig,
     finish_region_call calls it if the runner has not."""
     if state.loglik_by_idx is not None:
         return
-    with metrics.timer("device_alignment"):
+    where = f"{state.chrom}:{state.start}-{state.end} on {device}"
+    with metrics.timer("device_alignment"), device_stage(
+            f"alignment of {where}"):
         logliks = state.pending.finalize()
     state.loglik_by_idx = {w_idx: ll
                            for (w_idx, _p), ll in zip(state.live, logliks)}
     state.inference_by_idx = {}
     if device_inference_enabled(config, device):
-        with metrics.timer("device_inference"):
+        with metrics.timer("device_inference"), device_stage(
+                f"inference dispatch of {where}"):
             state.pending_inference = dispatch_device_inference(
                 state.live, state.loglik_by_idx, len(state.buffers), device)
 
@@ -187,7 +193,9 @@ def finish_region_call(state, ref_file, config: PlatypusConfig, writer,
     of VCF lines written."""
     begin_region_inference(state, config, device)
     if state.pending_inference is not None:
-        with metrics.timer("device_inference"):
+        with metrics.timer("device_inference"), device_stage(
+                f"inference of {state.chrom}:{state.start}-{state.end} "
+                f"on {device}"):
             state.inference_by_idx = state.pending_inference.gather()
         state.pending_inference = None
     # Every device stage is done: the JAX package's finish sees a region

@@ -36,7 +36,7 @@ from platypus_tpu.utils.observability import GLOBAL_METRICS as metrics
 
 from ..ops.align_cuda import band_align_padded, band_align_traceback_padded
 from ..ops.align_torch import gather_pad
-from ..utils.backend import DeviceError, fetch
+from ..utils.backend import device_stage, fetch
 
 _N_CHAR = ord("N")
 
@@ -244,13 +244,10 @@ def _aligned(requests, device: torch.device, gapextend: int, nucprior: int,
              what: str) -> PendingAlignments:
     """Dispatch and copy to the host; a failure of the device work raises
     DeviceError, which the window containments let through."""
-    try:
+    with device_stage(f"device scoring of {what} on {device}"):
         pending = dispatch_alignment_requests(requests, device, gapextend,
                                               nucprior)
         pending.copy_to_host()
-    except Exception as exc:
-        raise DeviceError(f"device scoring of {what} on {device} "
-                          f"failed: {exc}") from exc
     return pending
 
 

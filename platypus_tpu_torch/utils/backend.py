@@ -8,6 +8,7 @@ without a card fails here instead of quietly running on the CPU.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -15,11 +16,24 @@ import torch
 
 
 class DeviceError(RuntimeError):
-    """Device work failed inside a host stage that contains crashes (the
-    beam search scores reads from inside a window's preparation; the HLA
-    path calls windows and scores regions inside its window and region
-    containment).  Each containment re-raises it: a window or region whose
-    device work failed stops the run instead of vanishing from the VCF."""
+    """Device work failed.  Every device stage raises it (the region
+    pipeline's dispatch, finalize, inference and gather, through
+    device_stage; the beam search and the HLA path, which score from inside
+    a window's preparation or a region's call).  Each host containment
+    re-raises it: a window or region whose device work failed stops the run
+    instead of vanishing from the VCF."""
+
+
+@contextmanager
+def device_stage(what: str):
+    """Run a device stage of the region pipeline: whatever it raises leaves
+    as DeviceError (naming `what`), which every host containment re-raises."""
+    try:
+        yield
+    except DeviceError:
+        raise
+    except Exception as exc:
+        raise DeviceError(f"{what} failed: {exc}") from exc
 
 
 def require_cuda() -> torch.device:

@@ -154,8 +154,7 @@ assert "jax" not in sys.modules
     assert _data_lines(out) == want
 
 
-@pytest.mark.parametrize("flag", ["--nCPU=2", "--meshDevices=-1",
-                                  "--distributed=1", "--inferenceService=1"])
+@pytest.mark.parametrize("flag", ["--meshDevices=-1", "--distributed=1"])
 def test_unsupported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag.split("=")[0]):
         port_cli.main(["callVariants", "--bamFiles=x.bam", "--refFile=x.fa",
