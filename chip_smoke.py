@@ -54,7 +54,22 @@ without either it exits non-zero before printing any result.  Phases:
 11. resume: the single-process slice output cut after its middle data
    line, continued by `continueCalling` through the port's CLI and the
    CPU-pinned reference's: both continuations byte-identical, their data
-   lines those of the full run.
+   lines those of the full run;
+12. mesh CLI: the slice, and FLANK_REGION with --calculateFlankScore=1,
+   each with --meshDevices=-1 through the port's CLI in a fresh
+   interpreter that reports its kernel launches: byte-identical to the
+   reference's default runs, with K1 (K2) launched and the [mesh] timers
+   printed;
+13. mesh shards: in this process, mesh_call_region over a slice region
+   and over FLANK_REGION in flank mode on a 1-shard mesh, a 2-shard mesh
+   on cuda:0 and, with two cards or more, a mesh of every card: pair
+   scores bitwise equal and calls identical to each other and to the
+   float64 host path (graft_entry.check_mesh_region);
+14. dry run: graft_entry.dryrun_multichip on every card, and the demo
+   step on a 2-shard mesh of cuda:0 against a 1-shard one;
+15. distributed: --distributed=1 as two fresh processes under torchrun's
+   environment (gloo; rank r on cuda:{r % cards}) over the slice, merged
+   byte-identical to the reference.
 
 Any ERROR record on the `platypus_tpu` logger fails the run (every
 crash-containment path logs there).  The last two lines of stdout are the
@@ -549,6 +564,194 @@ def check_resume(info, smi):
           f"to the full run's", flush=True)
 
 
+# A fresh interpreter running the port's CLI on cuda, which prints its
+# kernel launch counts (counted from zero at its start) as its last line.
+COUNTED_CLI = ("import json, sys\n"
+               "from platypus_tpu_torch import cli\n"
+               "from platypus_tpu_torch.ops import align_cuda\n"
+               "rc = cli.main(sys.argv[1:])\n"
+               "print('LAUNCHES ' + json.dumps(align_cuda.LAUNCHES), flush=True)\n"
+               "sys.exit(rc)\n")
+
+
+def counted_result(proc, log):
+    """(launches, stdout) of a finished COUNTED_CLI process; fails on a
+    non-zero exit or an ERROR line in its log file `log`."""
+    if proc.returncode != 0:
+        raise RuntimeError(f"port CLI failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    with open(log) as fh:
+        errors = [line for line in fh if " - ERROR - " in line
+                  or " - CRITICAL - " in line]
+    if errors:
+        raise RuntimeError("port CLI logged ERROR records:\n" + "".join(errors))
+    lines = [line for line in proc.stdout.splitlines()
+             if line.startswith("LAUNCHES ")]
+    return json.loads(lines[-1].split(" ", 1)[1]), proc.stdout
+
+
+def check_mesh_cli(info, region, smi):
+    """Phase 12: --meshDevices=-1 through the port's CLI, on the slice and
+    (flank scores) on FLANK_REGION, against the reference's default runs."""
+    workdir = info["workdir"]
+    env = dict(os.environ, PLATYPUS_TPU_MESH_TIMERS="1")
+    for name, reg, extra, ref_name, kernel in (
+            ("mesh", region, (), "reference.vcf", "band_align"),
+            ("mesh_flank", FLANK_REGION, ("--calculateFlankScore=1",),
+             "reference_flank_region.vcf", "band_align_tb")):
+        out = os.path.join(workdir, f"port_{name}.vcf")
+        argv = cli_args(info, reg, out, ("--meshDevices=-1", *extra))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", COUNTED_CLI, *argv],
+                              cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        launches, stdout = counted_result(proc, f"{out}.log")
+        timers = [line for line in stdout.splitlines()
+                  if line.startswith("[mesh] ")]
+        n_lines = check_same_calls(name, os.path.join(workdir, ref_name), out)
+        if launches[kernel] <= 0 or not any("pack+launch" in t for t in timers):
+            raise AssertionError(f"{name}: no {kernel} launch or no [mesh] "
+                                 f"timers: {launches}, {timers[:3]}")
+        print(f"mesh: {reg} {' '.join(extra)} --meshDevices=-1 on {smi}: port "
+              f"CLI {wall:.6f} s, {launches['band_align']} K1 and "
+              f"{launches['band_align_tb']} K2 launches, [mesh] timers summed "
+              f"over {len(timers) // 3} regions: {mesh_timer_sums(timers)}; "
+              f"{n_lines} VCF data lines byte-identical to the reference's "
+              f"default run", flush=True)
+
+
+def mesh_timer_sums(timers):
+    """Seconds per [mesh] timer (pack+launch, device_get, unpack), summed
+    over the lines `[mesh] <name>[ N groups]: <t>s`."""
+    sums = {}
+    for line in timers:
+        label, value = line[len("[mesh] "):].rsplit(": ", 1)
+        name = label.split(" ")[0]
+        sums[name] = round(sums.get(name, 0.0) + float(value.rstrip("s")), 6)
+    return sums
+
+
+def span(region):
+    """'chrom:start-end' -> (chrom, start, end)."""
+    chrom, bounds = region.split(":")
+    start, end = bounds.split("-")
+    return chrom, int(start), int(end)
+
+
+def check_mesh_shards(info, region, smi, device):
+    """Phase 13: mesh_call_region on 1 shard, 2 shards of `device` and,
+    with two cards or more, every card: pair scores and calls identical."""
+    import torch
+
+    from platypus_tpu_torch import graft_entry
+    from platypus_tpu_torch.cli import build_config
+    from platypus_tpu_torch.parallel import mesh
+
+    meshes = [mesh.make_mesh(devices=[device]),
+              mesh.make_mesh(devices=[device, device])]
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        meshes.append(mesh.make_mesh())
+    chrom, start, _end = span(region)
+    for reg, extra in (((chrom, start, start + 100000), ()),
+                       (span(FLANK_REGION), ("--calculateFlankScore=1",))):
+        config = build_config([f"--bamFiles={info['bam']}",
+                               f"--refFile={info['ref']}", "--meshDevices=2",
+                               *extra, "-o", "-"])
+        reset_counts()
+        t0 = time.perf_counter()
+        counts = graft_entry.check_mesh_region(config, reg, device, meshes)
+        wall = time.perf_counter() - t0
+        launched = read_counts()
+        kernel = "band_align_tb" if extra else "band_align"
+        if launched[kernel] <= 0:
+            raise AssertionError(f"mesh shards: no {kernel} launch: {launched}")
+        print(f"mesh shards: {reg} {' '.join(extra)} on {smi}: "
+              f"{[m.shape for m in meshes]} gave bitwise equal pair scores "
+              f"({counts['pairs']} pairs, {counts['windows']} windows) and "
+              f"identical calls ({counts['calls']}), also with the host path; "
+              f"{launched[kernel]} {kernel} launches; {wall:.6f} s", flush=True)
+
+
+def check_dryrun(smi, device):
+    """Phase 14: graft_entry.dryrun_multichip on every card of `device`'s
+    type, and the demo step on 2 shards of `device` against 1 shard."""
+    import numpy as np
+    import torch
+
+    from platypus_tpu_torch import graft_entry
+    from platypus_tpu_torch.parallel import mesh
+
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    t0 = time.perf_counter()
+    counts = graft_entry.dryrun_multichip(n, device.type)
+    wall = time.perf_counter() - t0
+    batch = mesh.make_example_batch(W=8, Rmax=16)
+    one = mesh.build_calling_step(mesh.make_mesh(devices=[device]))(*batch)
+    two = mesh.build_calling_step(mesh.make_mesh(devices=[device] * 2))(*batch)
+    if not np.array_equal(one[2], two[2]):
+        raise AssertionError("demo step: scores differ between 1 and 2 shards")
+    freq_err = float(np.abs(one[0] - two[0]).max())
+    ratio_err = float(np.abs(one[1] - two[1]).max())
+    if freq_err > 1e-5 or ratio_err > 1e-3:
+        raise AssertionError(f"demo step: 2 shards differ from 1 by "
+                             f"{freq_err} (freq), {ratio_err} (ratio)")
+    print(f"dry run: dryrun_multichip({n}, {device.type}) on {smi} in "
+          f"{wall:.6f} s: {counts}; demo step on 2 shards of {device}: scores "
+          f"bitwise equal "
+          f"to 1 shard, max |freq diff| {freq_err}, max |ratio diff| "
+          f"{ratio_err}", flush=True)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_distributed(info, region, smi):
+    """Phase 15: two --distributed=1 processes (torchrun's environment,
+    gloo) over the slice; the merged VCF equals the reference's."""
+    workdir = info["workdir"]
+    out = os.path.join(workdir, "port_distributed.vcf")
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            argv = cli_args(info, region, out, ("--distributed=1",))
+            argv[argv.index(f"--logFileName={out}.log")] = \
+                f"--logFileName={out}.{rank}.log"
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
+                       LOCAL_RANK=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", COUNTED_CLI, *argv], cwd=REPO, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        results = []
+        for rank, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            results.append(counted_result(
+                subprocess.CompletedProcess(proc.args, proc.returncode, stdout,
+                                            stderr), f"{out}.{rank}.log")[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+    wall = time.perf_counter() - t0
+    n_lines = check_same_calls("distributed",
+                               os.path.join(workdir, "reference.vcf"), out)
+    if any(r["band_align"] <= 0 for r in results):
+        raise AssertionError(f"distributed: a rank launched no K1: {results}")
+    print(f"distributed: two --distributed=1 processes (gloo) on {smi}: "
+          f"{wall:.6f} s, K1 launches per rank "
+          f"{[r['band_align'] for r in results]}; {n_lines} merged VCF data "
+          f"lines byte-identical to the reference", flush=True)
+
+
 def check_same_calls(what, ref_out, *port_outs):
     """Every port VCF's data lines byte-identical to the reference's;
     returns the number of data lines."""
@@ -731,6 +934,13 @@ def main() -> int:
     check_service(info, region, smi)
     check_resume(info, smi)
     errors.check("pool, hybrid, service, resume")
+
+    # 12-15. the mesh and the multi-host run
+    check_mesh_cli(info, region, smi)
+    check_mesh_shards(info, region, smi, torch.device("cuda", 0))
+    check_dryrun(smi, torch.device("cuda", 0))
+    check_distributed(info, region, smi)
+    errors.check("mesh, dry run, distributed")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported by the port")
 

@@ -14,6 +14,10 @@ InferenceBatch arrays (platypus_tpu/parallel/batch.py) -- plus the same
 PlatypusConfig object.  Both packages therefore receive byte-identical
 inputs by construction, and no converter exists or is needed.
 
+Beyond one card, parallel/mesh.py runs each region's step over a mesh of
+the host's GPUs (--meshDevices) and parallel/distributed.py one process
+of a multi-host run (--distributed).
+
 This package imports `torch` and never `jax`.  From `platypus_tpu` it
 imports only host-side layers (io, candidates, models, vcfout, native,
 config, ops.align_core / likelihood / kmer, and the host functions of

@@ -1,5 +1,5 @@
-"""Command-line interface of the torch port: `callVariants` and
-`continueCalling`.
+"""Command-line interface of the torch port: `callVariants`,
+`continueCalling`, `somatic` and `denovo`.
 
     python -m platypus_tpu_torch.cli callVariants --bamFiles=... --refFile=... -o out.vcf
     python -m platypus_tpu_torch.cli continueCalling --vcfFile=partial.vcf
@@ -11,8 +11,12 @@ one.  --calculateFlankScore=1 aligns its windows with the traceback
 kernel, and --HLATyping=1 types each region as an HLA region.  --nCPU>1
 runs the pool of engine/runner.py (host workers, at most one device
 worker, or with --inferenceService=1 the device-owner service);
---meshDevices and --distributed raise NotImplementedError; --usePallas is
-accepted and ignored (on CUDA the hand-written kernels are the path).
+--meshDevices=N runs each region's step over a mesh of N GPUs
+(parallel/mesh.py), and --distributed=1 one process of a multi-host run
+(parallel/distributed.py); --usePallas is accepted and ignored (on CUDA
+the hand-written kernels are the path).  `somatic` and `denovo` filter a
+VCF on the host: they are the JAX package's own commands, which touch no
+device.
 
 The engine (and torch) are imported inside main(): the pool spawns its
 workers, a spawned child re-imports this module as its __main__, and the
@@ -27,8 +31,10 @@ import sys
 from typing import List, Optional
 
 from platypus_tpu.cli import build_config
+from platypus_tpu.cli import main as host_cli
 
-USAGE = "usage: platypus-tpu-torch {callVariants,continueCalling} [options]"
+USAGE = ("usage: platypus-tpu-torch {callVariants,continueCalling,somatic,"
+         "denovo} [options]")
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
@@ -41,9 +47,11 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         print(USAGE)
         return 0 if argv else 2
     command, rest = argv[0], argv[1:]
+    if command in ("somatic", "denovo"):
+        return host_cli(argv)
     if command not in ("callVariants", "continueCalling"):
-        print(f"platypus-tpu-torch supports callVariants and continueCalling, "
-              f"not {command!r}; use platypus-tpu for it")
+        print(f"unknown command {command!r}; use callVariants, "
+              f"continueCalling, somatic or denovo")
         return 2
     from .engine.runner import continue_calling, run_variant_caller
     from .utils.backend import resolve_device

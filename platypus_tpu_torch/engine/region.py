@@ -1,8 +1,9 @@
 """Region pipeline stages of the torch port: prepare -> begin -> finish.
 
 Twins of platypus_tpu/engine/region.py's prepare_region_call,
-begin_region_inference and finish_region_call for one device, without
-the mesh and device-service branches.  The host work (read loading and
+begin_region_inference and finish_region_call, with the --meshDevices
+branch (parallel/mesh.py) and without the device-service client's.  The
+host work (read loading and
 QC, candidate generation, windowing, and the per-window output loop) is
 the JAX package's code.  The host-side crash containment of a region load
 and of a window's preparation stays as it is there.  Every device stage
@@ -10,7 +11,8 @@ and of a window's preparation stays as it is there.  Every device stage
 its gather) runs inside device_stage, so whatever it raises leaves as
 DeviceError, which the window containment here and the runner's region
 containment re-raise.  The beam search's device scoring runs inside a
-window's preparation and raises DeviceError too.
+window's preparation and raises DeviceError too.  Unlike the JAX package,
+a failed mesh stage does not fall back to the dispatch path.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ from platypus_tpu.io.bam import BamFile
 from platypus_tpu.utils.observability import GLOBAL_METRICS as metrics
 
 from ..parallel.batch import dispatch_device_inference
+from ..parallel.mesh import get_engine_mesh, mesh_call_region
 from ..utils.backend import DeviceError, device_stage
 from .caller import prepare_window
-from .score import dispatch_alignment_requests
+from .score import dispatch_alignment_requests, run_alignment_requests
 
 logger = logging.getLogger("platypus_tpu")
 
@@ -52,8 +55,9 @@ def prepare_region_call(
     preloaded: RegionPrefetch = None,
 ):
     """Host phases of a region (load, candidates, window prep) ending with
-    the asynchronous dispatch of all its alignments on `device`.  Returns
-    None when the region is skipped, else a PreparedRegion."""
+    the asynchronous dispatch of all its alignments on `device` (with
+    --meshDevices, none: the mesh aligns in begin_region_inference).
+    Returns None when the region is skipped, else a PreparedRegion."""
     rlen0 = rt.rlen
     region_t0 = time.perf_counter()
     ref_file.set_cache_sequence(chrom, start - 10 * rt.rlen, end + 10 * rt.rlen)
@@ -148,9 +152,13 @@ def prepare_region_call(
     metrics.count("windows", len(windows))
     metrics.count("alignment_pairs",
                   sum(p.request.n_pairs() for _, p in live if p.request is not None))
-    with metrics.timer("device_dispatch"), device_stage(
-            f"alignment dispatch of {chrom}:{start}-{end} on {device}"):
-        pending = dispatch_alignment_requests([p.request for _, p in live], device)
+    if config.mesh_devices:
+        pending = None
+    else:
+        with metrics.timer("device_dispatch"), device_stage(
+                f"alignment dispatch of {chrom}:{start}-{end} on {device}"):
+            pending = dispatch_alignment_requests([p.request for _, p in live],
+                                                  device)
 
     return PreparedRegion(chrom=chrom, start=start, end=end, buffers=buffers,
                           windows=windows, prepared=prepared, live=live,
@@ -168,11 +176,28 @@ def device_inference_enabled(config: PlatypusConfig, device: torch.device) -> bo
 def begin_region_inference(state, config: PlatypusConfig,
                            device: torch.device) -> None:
     """Await the region's alignment scores and queue the fused
-    GL/EM/posterior programs without waiting for them.  Idempotent;
-    finish_region_call calls it if the runner has not."""
-    if state.loglik_by_idx is not None:
+    GL/EM/posterior programs without waiting for them; with
+    --meshDevices, queue the mesh's region step instead (its fetch is left
+    in state.mesh_fetch for finish_region_call) and align the pair-less
+    windows it leaves over.  Idempotent; finish_region_call calls it if
+    the runner has not."""
+    if state.loglik_by_idx is not None or state.mesh_fetch is not None:
         return
     where = f"{state.chrom}:{state.start}-{state.end} on {device}"
+    if state.pending is None:
+        with metrics.timer("device_alignment"), device_stage(
+                f"mesh region step of {where}"):
+            mesh = get_engine_mesh(config.mesh_devices, device)
+            fetch_fn, leftover = mesh_call_region(
+                state.live, len(state.buffers), mesh, defer=True)
+        extra = {}
+        if leftover:
+            with metrics.timer("device_alignment"):
+                lls = run_alignment_requests([p.request for _, p in leftover],
+                                             device)
+            extra = {w_idx: ll for (w_idx, _p), ll in zip(leftover, lls)}
+        state.mesh_fetch = (fetch_fn, extra)
+        return
     with metrics.timer("device_alignment"), device_stage(
             f"alignment of {where}"):
         logliks = state.pending.finalize()
@@ -192,6 +217,14 @@ def finish_region_call(state, ref_file, config: PlatypusConfig, writer,
     per-window inference + output (in window order).  Returns the number
     of VCF lines written."""
     begin_region_inference(state, config, device)
+    if state.mesh_fetch is not None:
+        fetch_fn, extra = state.mesh_fetch
+        with metrics.timer("device_alignment"), device_stage(
+                f"mesh fetch of {state.chrom}:{state.start}-{state.end} "
+                f"on {device}"):
+            state.loglik_by_idx, state.inference_by_idx = fetch_fn()
+        state.loglik_by_idx.update(extra)
+        state.mesh_fetch = None
     if state.pending_inference is not None:
         with metrics.timer("device_inference"), device_stage(
                 f"inference of {state.chrom}:{state.start}-{state.end} "

@@ -1,14 +1,15 @@
 """Top-level entry of the torch port: one process, or a pool of them.
 
 Twin of platypus_tpu/engine/runner.py: run_single_process with its
---HLATyping branch, run_variant_caller with the n_cpu > 1 pool, and
-continue_calling.  Region generation, BAM opening, logging setup, the VCF
-writer, the shared region claim state (RegionClaimSource, with its settle
-gate, bow-out and rescue) and the k-way merge are the JAX package's host
-code, used read-only.  --meshDevices and --distributed raise
-NotImplementedError naming the flag; neither falls back to the JAX
-package.  --usePallas is accepted and ignored: on CUDA the hand-written
-kernels are the path.
+--HLATyping branch, run_variant_caller with the --distributed branch
+(parallel/distributed.py) and the n_cpu > 1 pool, and continue_calling.
+Region generation, BAM opening, logging setup, the VCF writer, the shared
+region claim state (RegionClaimSource, with its settle gate, bow-out and
+rescue) and the k-way merge are the JAX package's host code, used
+read-only.  --meshDevices needs no code here: the region stages read it
+from the config (engine/region.py), in the single process and in a pool's
+device worker alike.  --usePallas is accepted and ignored: on CUDA the
+hand-written kernels are the path.
 
 The pool (n_cpu > 1) is the JAX package's hybrid pool:
 
@@ -63,6 +64,7 @@ from platypus_tpu.vcfout.writer import VCFWriter
 
 from ..ops import align_cuda
 from ..parallel import batch
+from ..parallel.distributed import run_distributed
 from ..utils.backend import DeviceError
 from .device_service import DeviceService, should_start_service
 from .hla import call_hla_variants_in_region
@@ -70,12 +72,6 @@ from .region import (begin_region_inference, finish_region_call,
                      prepare_region_call)
 
 logger = logging.getLogger("platypus_tpu")
-
-# (flag, config field, predicate on its value that the port cannot run)
-UNSUPPORTED = (
-    ("--meshDevices", "mesh_devices", lambda v: v != 0),
-    ("--distributed", "distributed", lambda v: v != 0),
-)
 
 # The environment of a host worker: the JAX package's CPU pin, and its
 # flank path kept off the Pallas dispatch (which would import jax).
@@ -89,15 +85,6 @@ DEVICE_COUNTS = ("regions", *align_cuda.KERNELS, "batches")
 
 # Seconds the parent grants a terminated device worker before killing it.
 _TERM_GRACE_S = 15.0
-
-
-def check_supported(config: PlatypusConfig) -> None:
-    for flag, field_name, unsupported in UNSUPPORTED:
-        value = getattr(config, field_name)
-        if unsupported(int(value)):
-            raise NotImplementedError(
-                f"{flag}={value} is not supported by platypus_tpu_torch yet; "
-                f"run it with the platypus_tpu package")
 
 
 def run_single_process(
@@ -442,10 +429,14 @@ def run_pool(config: PlatypusConfig, regions: List[Region],
 def run_variant_caller(config: PlatypusConfig, device: torch.device,
                        regions: Optional[List[Region]] = None,
                        continuing: bool = False) -> Optional[dict]:
-    """`callVariants` on `device`: one process for n_cpu <= 1 (appending
-    when `continuing`), else run_pool, whose summary it returns."""
+    """`callVariants` on `device`: with --distributed, this process's
+    share of a multi-host run (parallel/distributed.run_distributed);
+    else one process for n_cpu <= 1 (appending when `continuing`), or
+    run_pool, whose summary it returns."""
     setup_logging(config, continuing)
-    check_supported(config)
+    if config.distributed:
+        run_distributed(config, device)
+        return None
     if regions is None:
         regions = get_regions(config)
     regions = sorted(regions, key=lambda r: (_chrom_sort_key(r[0]), r[1], r[2]))

@@ -1,7 +1,8 @@
 """Device half of window scoring, torch: batched pair alignment.
 
 Twin of platypus_tpu/engine/score.py:613-873 and, for
---calculateFlankScore, :739-750 and :913-966.  Pair construction
+--calculateFlankScore, :739-750 and :913-966 (flank_pair_scores is the
+mesh's counterpart of _device_flank_scores).  Pair construction
 (build_alignment_request, fill_deferred_pairs, RegionReadMatrix), the
 per-pair backtrace and flank penalty (align_core) and the score ->
 log-likelihood conversion (the native loglik batch and
@@ -79,7 +80,9 @@ class PendingAlignments(host_score.PendingAlignments):
                 (owners, [(fetch(list(tensors)), sl) for tensors, sl in chunks]))
         self.flank_groups = []
 
-    def finalize(self) -> List[np.ndarray]:
+    def backtrace_flank(self) -> None:
+        """copy_to_host(), then the host backtrace and flank penalty of
+        every flank pair, into pair_scores."""
         self.copy_to_host()
         for owners, chunks in self._flank_host:
             with metrics.timer("flank_backtrace"):
@@ -87,6 +90,9 @@ class PendingAlignments(host_score.PendingAlignments):
                         owners, chunks, self.gapextend, self.nucprior)):
                     self.pair_scores[id(req)] = scores
         self._flank_host = []
+
+    def finalize(self) -> List[np.ndarray]:
+        self.backtrace_flank()
         return super().finalize()
 
 
@@ -261,6 +267,22 @@ def run_alignment_requests(
     None request).  A failure of the device work raises DeviceError."""
     return _aligned(requests, device, gapextend, nucprior,
                     f"{len(requests)} windows").finalize()
+
+
+def flank_pair_scores(
+    requests: Sequence[AlignmentRequest],
+    device: torch.device,
+    gapextend: int = 3,
+    nucprior: int = 2,
+) -> List[np.ndarray]:
+    """Per --calculateFlankScore request (each with pairs), its [P] int64
+    flank-corrected pair scores: K2 on `device`, then the host backtrace
+    and flank penalty.  The mesh's flank windows take their scores from
+    here.  A failure of the device work raises DeviceError."""
+    pending = _aligned(requests, device, gapextend, nucprior,
+                       f"{len(requests)} flank windows")
+    pending.backtrace_flank()
+    return [pending.pair_scores[id(req)] for req in requests]
 
 
 def score_reads_vs_haplotypes(

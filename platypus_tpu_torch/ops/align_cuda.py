@@ -137,9 +137,17 @@ def _check_inputs(what, hap_cols, go4_cols, read_cols, qual4_cols, read_len):
     return n_steps, B
 
 
-def _launched(name: str, rc: int) -> None:
+def _launch(dev: torch.device, name: str, fn, *args) -> None:
+    """Launch a kernel library's entry point on `dev`'s current stream,
+    with `dev` the current device: the runtime API of a ctypes call
+    launches into the current device's context, which is cuda:0 unless
+    something set it.  Raises on a refused launch; counts the launch."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
 def band_align_padded(hap_cols: torch.Tensor, go4_cols: torch.Tensor,
@@ -162,11 +170,9 @@ def band_align_padded(hap_cols: torch.Tensor, go4_cols: torch.Tensor,
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _launched("band_align", lib.ptt_band_align(
-        *(t.data_ptr() for t in args), out.data_ptr(), B, n_steps,
-        int(gapextend), int(nucprior), stream))
-    LAUNCHES["band_align"] += 1
+    _launch(dev, "band_align", lib.ptt_band_align,
+            *(t.data_ptr() for t in args), out.data_ptr(), B, n_steps,
+            int(gapextend), int(nucprior))
     return out
 
 
@@ -192,9 +198,7 @@ def band_align_traceback_padded(hap_cols: torch.Tensor, go4_cols: torch.Tensor,
     bp = torch.empty((n_steps * 8, B), dtype=torch.int32, device=dev)
     if B == 0:
         return score, idx, bp
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _launched("band_align_tb", lib.ptt_band_align_tb(
-        *(t.data_ptr() for t in args), score.data_ptr(), idx.data_ptr(),
-        bp.data_ptr(), B, n_steps, int(gapextend), int(nucprior), stream))
-    LAUNCHES["band_align_tb"] += 1
+    _launch(dev, "band_align_tb", lib.ptt_band_align_tb,
+            *(t.data_ptr() for t in args), score.data_ptr(), idx.data_ptr(),
+            bp.data_ptr(), B, n_steps, int(gapextend), int(nucprior))
     return score, idx, bp

@@ -8,7 +8,14 @@ f64-exactness guard (platypus_tpu/engine/caller._device_window_needs_host)
 decides per window whether these f32 results may be emitted.
 
 The [G, R] x [R, I] contractions must run in full f32 (never TF32 or
-bf16): `infer_window_batch` sets and checks that before it runs.
+bf16): `infer_window_batch` sets and checks that before it runs, and so
+does `variant_posterior_ratio` for its two dot products.
+
+The linear-space functions (genotype_log_likelihoods, em_frequencies,
+em_frequencies_resp, window_em_batch, variant_posterior_ratio) are the
+twins of the ones the JAX package's mesh demo step runs
+(parallel/mesh.py build_calling_step); the engine's inference runs in
+log space (infer_window_batch).
 """
 
 from __future__ import annotations
@@ -45,9 +52,9 @@ def _require_full_f32_matmul() -> None:
         raise RuntimeError("full-f32 matmul could not be set")
 
 
-def genotype_gl_gof(loglik, h1, h2, sample_onehot):
-    """loglik [W, H, R], sample_onehot [W, I, R] -> (gl [W, I, G],
-    gof_sum [W, I, G]); twin of likelihood_jax.genotype_gl_gof_jax."""
+def _per_read_genotype(loglik, h1, h2):
+    """loglik [W, H, R] -> (per-read genotype log-likelihood [W, G, R]
+    with the reference's three fast paths, max(l1, l2) [W, G, R])."""
     l1 = loglik[:, h1]            # [W, G, R]
     l2 = loglik[:, h2]
     same = (h1 == h2)[None, :, None]
@@ -58,6 +65,20 @@ def genotype_gl_gof(loglik, h1, h2, sample_onehot):
         same, l1,
         torch.where(diff >= 3.0, LOG_HALF + mx,
                     torch.where(diff <= 1e-3, l1, exact)))
+    return per_read, mx
+
+
+def genotype_log_likelihoods(loglik, h1, h2, read_mask):
+    """loglik [W, H, R], read_mask [W, R] -> gl [W, G] summed over the
+    masked reads; twin of likelihood_jax.genotype_log_likelihoods_jax."""
+    per_read, _mx = _per_read_genotype(loglik, h1.long(), h2.long())
+    return torch.where(read_mask[:, None, :], per_read, 0.0).sum(dim=2)
+
+
+def genotype_gl_gof(loglik, h1, h2, sample_onehot):
+    """loglik [W, H, R], sample_onehot [W, I, R] -> (gl [W, I, G],
+    gof_sum [W, I, G]); twin of likelihood_jax.genotype_gl_gof_jax."""
+    per_read, mx = _per_read_genotype(loglik, h1, h2)
     oh_t = sample_onehot.transpose(1, 2)          # [W, R, I]
     gl = torch.matmul(per_read, oh_t)             # [W, G, I]
     gof = torch.matmul(LOG10E * mx, oh_t)
@@ -73,6 +94,95 @@ def rescale_likelihoods(gl, geno_mask, has_reads):
     lik = torch.where(gm, lik, 0.0)
     return torch.where(has_reads[:, :, None], lik,
                        torch.where(gm, 1.0, 0.0).to(lik.dtype))
+
+
+def _per_window(idx, n_windows: int):
+    """Genotype hap indices, shared [G] or per window [W, G] -> [W, G]."""
+    idx = idx.long()
+    return idx.expand(n_windows, -1) if idx.dim() == 1 else idx
+
+
+def em_frequencies_resp(likelihoods, h1, h2, n_haps_max: int, hap_mask,
+                        has_reads, n_iters: int = 100, tol=None):
+    """Linear-space EM over haplotype frequencies for W windows at once;
+    twin of likelihood_jax.em_frequencies_resp_jax.
+
+    likelihoods [W, I, G], h1/h2 [G] or [W, G], hap_mask [W, H],
+    has_reads [W, I].  Returns (frequencies [W, H], responsibilities
+    [W, I, G]).  With `tol` a window freezes once its max frequency
+    change is <= tol, as the JAX version's vmapped while_loop leaves it,
+    while the others run on (the same masked loop as em_frequencies_log);
+    tol None runs n_iters plain iterations."""
+    dt = likelihoods.dtype
+    W = likelihoods.shape[0]
+    h1 = _per_window(h1, W)
+    h2 = _per_window(h2, W)
+    n_haps = hap_mask.sum(dim=1).clamp_min(1)
+    n_with_data = has_reads.sum(dim=1).clamp_min(1)
+    het = 1.0 + (h1 != h2).to(dt)                                     # [W, G]
+    lik = torch.where(has_reads[:, :, None], likelihoods, 0.0)
+    freq = torch.where(hap_mask, (1.0 / n_haps.to(dt))[:, None], 0.0)
+    w = torch.zeros_like(lik)
+    denom = (2.0 * n_with_data.to(dt))[:, None]
+    done = torch.zeros(W, dtype=torch.bool, device=lik.device)
+    for _ in range(n_iters):
+        new_w = lik * (freq.gather(1, h1) * freq.gather(1, h2) * het)[:, None, :]
+        s = new_w.sum(dim=2, keepdim=True)
+        new_w = torch.where(s > 0, new_w / torch.where(s > 0, s, 1.0), 0.0)
+        resp = new_w.sum(dim=1)                                       # [W, G]
+        new = torch.zeros((W, n_haps_max), dtype=dt, device=lik.device)
+        new = new.scatter_add(1, h1, resp).scatter_add(1, h2, resp) / denom
+        new = torch.where(hap_mask, new, 0.0)
+        if tol is None:
+            freq, w = new, new_w
+            continue
+        max_change = torch.amax(torch.abs(new - freq), dim=1)
+        freq = torch.where(done[:, None], freq, new)
+        w = torch.where(done[:, None, None], w, new_w)
+        done = done | (max_change <= tol)
+    return freq, torch.where(has_reads[:, :, None], w, 0.0)
+
+
+def em_frequencies(likelihoods, h1, h2, n_haps_max: int, hap_mask,
+                   has_reads, n_iters: int = 100):
+    """Frequencies [W, H] of em_frequencies_resp with n_iters fixed
+    iterations; twin of likelihood_jax.em_frequencies_jax."""
+    return em_frequencies_resp(likelihoods, h1, h2, n_haps_max, hap_mask,
+                               has_reads, n_iters)[0]
+
+
+def window_em_batch(gl, h1, h2, geno_mask, hap_mask, has_reads,
+                    n_iters: int = 100):
+    """gl [W, I, G] log-likelihoods -> (likelihoods [W, I, G],
+    frequencies [W, Hmax]); twin of likelihood_jax.window_em_batch, whose
+    h1/h2 are per window ([W, G]; a shared [G] works too)."""
+    lik = rescale_likelihoods(gl, geno_mask, has_reads)
+    return lik, em_frequencies(lik, h1, h2, hap_mask.shape[1], hap_mask,
+                               has_reads, n_iters)
+
+
+def variant_posterior_ratio(likelihoods, frequencies, hap_has_variant, h1,
+                            h2, has_reads):
+    """likelihoods [W, I, G], frequencies [W, H], hap_has_variant [W, H],
+    has_reads [W, I] -> [W] sum_i (ln P(data_i|no var) - ln P(data_i|var));
+    twin of likelihood_jax.variant_posterior_ratio_jax.  Its two dot
+    products run in full f32, as the JAX version's Precision.HIGHEST."""
+    _require_full_f32_matmul()
+    W = likelihoods.shape[0]
+    h1 = _per_window(h1, W)
+    h2 = _per_window(h2, W)
+    fp = torch.where(hap_has_variant, 0.0, frequencies)
+    s = fp.sum(dim=1, keepdim=True)
+    fp = torch.where(s > 0, fp / torch.where(s > 0, s, 1.0), fp)
+    factor = 1.0 + (h1 != h2).to(likelihoods.dtype)
+    w_var = factor * frequencies.gather(1, h1) * frequencies.gather(1, h2)
+    w_novar = factor * fp.gather(1, h1) * fp.gather(1, h2)
+    pv = torch.matmul(likelihoods, w_var[:, :, None])[..., 0]       # [W, I]
+    pn = torch.matmul(likelihoods, w_novar[:, :, None])[..., 0]
+    log_min = -708.0
+    lv = torch.where(pv > 0, torch.log(torch.where(pv > 0, pv, 1.0)), log_min)
+    ln = torch.where(pn > 0, torch.log(torch.where(pn > 0, pn, 1.0)), log_min)
+    return torch.where(has_reads, ln - lv, 0.0).sum(dim=1)
 
 
 def _lse(x, dim, keepdim: bool = False):

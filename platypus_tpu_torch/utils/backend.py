@@ -54,14 +54,17 @@ def resolve_device(device: Optional[object] = None) -> torch.device:
 
 
 def fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Copy same-dtype device tensors to host numpy arrays in ONE
-    device->host transfer (flattened and concatenated on the device)."""
+    """Copy tensors of one device to host numpy arrays in ONE
+    device->host transfer: their bytes, concatenated on the device, so
+    the tensors may differ in dtype."""
     if not tensors:
         return []
-    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    flat = torch.cat([t.reshape(-1).view(torch.uint8)
+                      for t in tensors]).cpu().numpy()
     out, off = [], 0
     for t in tensors:
-        n = t.numel()
-        out.append(flat[off : off + n].reshape(tuple(t.shape)))
+        n = t.numel() * t.element_size()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(flat[off : off + n].view(dtype).reshape(tuple(t.shape)))
         off += n
     return out

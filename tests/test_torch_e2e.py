@@ -154,12 +154,66 @@ assert "jax" not in sys.modules
     assert _data_lines(out) == want
 
 
-@pytest.mark.parametrize("flag", ["--meshDevices=-1", "--distributed=1"])
-def test_unsupported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=flag.split("=")[0]):
-        port_cli.main(["callVariants", "--bamFiles=x.bam", "--refFile=x.fa",
-                       f"--logFileName={tmp_path}/log.txt", flag,
-                       "-o", str(tmp_path / "out.vcf")], device="cpu")
+SOMATIC_VCF = (
+    "##fileformat=VCFv4.0\n"
+    "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tNORMAL\tTUMOUR\n"
+    "chr1\t100\t.\tA\tG\t200\tPASS\tTC=50\tGT:GL:GQ:NR:NV\t"
+    "0/0:0.0,-30.0,-60.0:99:25:0\t0/1:-30.0,0.0,-25.0:99:25:12\n"
+    "chr1\t200\t.\tC\tT\t200\tPASS\tTC=50\tGT:GL:GQ:NR:NV\t"
+    "0/1:-30.0,0.0,-25.0:99:25:12\t0/1:-30.0,0.0,-25.0:99:25:13\n")
+TRIO_VCF = (
+    "##fileformat=VCFv4.0\n"
+    "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tCHILD\tDAD\tMUM\n"
+    "chr1\t100\t.\tA\tG\t500\tPASS\tTC=50\tGT:GL:GQ:NR:NV\t"
+    "0/1:-30.0,0.0,-25.0:99:25:12\t0/0:0.0,-30.0,-60.0:99:25:0\t"
+    "0/0:0.0,-30.0,-60.0:99:25:0\n"
+    "chr1\t200\t.\tC\tT\t500\tPASS\tTC=50\tGT:GL:GQ:NR:NV\t"
+    "0/1:-30.0,0.0,-25.0:99:25:12\t0/1:-30.0,0.0,-25.0:99:25:11\t"
+    "0/0:0.0,-30.0,-60.0:99:25:0\n")
+TRIO_PED = ("FAM1\tCHILD\tDAD\tMUM\t2\t2\nFAM1\tDAD\t0\t0\t1\t1\n"
+            "FAM1\tMUM\t0\t0\t2\t1\n")
+
+
+def test_somatic_matches_jax_cli(tmp_path):
+    """`somatic` through the port's CLI writes the JAX CLI's file, byte
+    for byte (tests/test_heads.py's tumour/normal records)."""
+    src = tmp_path / "tn.vcf"
+    src.write_text(SOMATIC_VCF)
+    outs = {}
+    for who, main in (("port", port_cli.main), ("jax", jax_cli)):
+        out = tmp_path / f"somatic_{who}.vcf"
+        assert main(["somatic", f"--inputVCF={src}", f"--outputVCF={out}",
+                     "--tumourSample=TUMOUR", "--normalSample=NORMAL"]) == 0
+        outs[who] = out.read_text()
+    assert outs["port"] == outs["jax"]
+    assert "chr1\t100" in outs["port"] and "chr1\t200" not in outs["port"]
+
+
+def test_denovo_matches_jax_cli(tmp_path):
+    """`denovo inVCF pedFile` through the port's CLI writes the JAX CLI's
+    three files, byte for byte (tests/test_heads.py's trio records)."""
+    suffixes = ("mendelErrors", "deNovoVariants",
+                "deNovoVariantsPassingBayesianFilter")
+    outs = {}
+    for who, main in (("port", port_cli.main), ("jax", jax_cli)):
+        work = tmp_path / who
+        work.mkdir()
+        (work / "trio.vcf").write_text(TRIO_VCF)
+        (work / "trio.ped").write_text(TRIO_PED)
+        assert main(["denovo", str(work / "trio.vcf"),
+                     str(work / "trio.ped")]) == 0
+        outs[who] = [(work / f"trio_{sfx}.vcf").read_text()
+                     for sfx in suffixes]
+    assert outs["port"] == outs["jax"]
+    assert "chr1\t100" in outs["port"][2]
+
+
+def test_usage_names_every_command(capsys):
+    assert port_cli.main(["--help"]) == 0
+    usage = capsys.readouterr().out
+    for command in ("callVariants", "continueCalling", "somatic", "denovo"):
+        assert command in usage
+    assert port_cli.main(["bogus"]) == 2
 
 
 def test_default_device_needs_cuda(tmp_path, monkeypatch):

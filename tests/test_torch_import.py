@@ -36,6 +36,8 @@ def test_importing_every_module_leaves_jax_unloaded():
     assert "platypus_tpu_torch.cli" in mods
     assert "platypus_tpu_torch.ops.align_cuda" in mods
     assert "platypus_tpu_torch.engine.hla" in mods
+    for mod in ("parallel.mesh", "parallel.distributed", "graft_entry"):
+        assert f"platypus_tpu_torch.{mod}" in mods
     proc = _run("import importlib, sys\n"
                 f"for m in {mods!r}: importlib.import_module(m)\n"
                 "assert 'jax' not in sys.modules, 'jax was imported'\n",

@@ -302,13 +302,3 @@ def test_device_worker_policy(monkeypatch):
     cfg.worker_platform = "cpu"
     monkeypatch.setenv("PLATYPUS_TPU_HYBRID_WORKER", "-1")
     assert n(cfg, 4, cuda) == 0          # workers pinned by --workerPlatform
-
-
-def test_unsupported_flags_keep_their_message():
-    cfg = PlatypusConfig(bam_files=["x"], ref_file="y", output="z", n_cpu=4,
-                         inference_service=1)
-    port_runner.check_supported(cfg)     # the pool and the service run
-    cfg.mesh_devices = 2
-    with pytest.raises(NotImplementedError, match="--meshDevices=2"):
-        port_runner.check_supported(cfg)
-

@@ -1,5 +1,6 @@
 """Shared helpers of the torch port's multi-process tests
-(test_torch_pool.py, test_torch_service.py).
+(test_torch_pool.py, test_torch_service.py, test_torch_mesh.py,
+test_torch_distributed.py).
 
 The port's CLI runs in a fresh interpreter on device="cpu", so the pool's
 spawned processes start from a clean environment.  A `sitecustomize.py`
@@ -18,8 +19,10 @@ does what the tests need there:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 
@@ -92,6 +95,22 @@ if os.environ.get("PTT_TEST_SERVICE_FAIL"):
 '''
 
 
+@contextlib.contextmanager
+def time_limit(seconds: int):
+    """Fail the enclosed test with TimeoutError after `seconds` (SIGALRM,
+    so only in the main thread) instead of letting it hang the run."""
+    def expire(_sig, _frame):
+        raise TimeoutError(f"the test ran past its {seconds} s limit")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+
+
 def make_dataset(workdir):
     """test_device_service.py's 30 kb dataset; returns the reference path."""
     from test_device_service import _make_dataset
@@ -124,10 +143,10 @@ def reference_lines(workdir, ref_path, extra=(), region=REGION):
     return data_lines(out)
 
 
-def run_port_cli(tmp_path, argv, device="cpu", **env_set):
-    """The port's CLI, main(argv, device), in a fresh interpreter with the
-    test sitecustomize loaded; env_set is laid over this environment.
-    Returns (CompletedProcess, the import log's lines)."""
+def fresh_env(tmp_path, **env_set):
+    """The environment of a fresh interpreter that loads the test
+    sitecustomize (jax blocked, torch imports logged), with env_set laid
+    over this one's.  Returns (environment, import log path)."""
     site = tmp_path / "site"
     site.mkdir(exist_ok=True)
     (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
@@ -138,6 +157,14 @@ def run_port_cli(tmp_path, argv, device="cpu", **env_set):
     env.update(env_set)
     env["PYTHONPATH"] = os.pathsep.join([str(site), REPO])
     env["PTT_TEST_IMPORT_LOG"] = str(import_log)
+    return env, import_log
+
+
+def run_port_cli(tmp_path, argv, device="cpu", **env_set):
+    """The port's CLI, main(argv, device), in a fresh interpreter with the
+    test sitecustomize loaded; env_set is laid over this environment.
+    Returns (CompletedProcess, the import log's lines)."""
+    env, import_log = fresh_env(tmp_path, **env_set)
     code = ("import sys\n"
             "from platypus_tpu_torch.cli import main\n"
             f"sys.exit(main({list(argv)!r}, device={device!r}))\n")
