@@ -4,24 +4,34 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc and the repository checkout around this file;
-without either it exits non-zero before printing any result.  Phases:
+without either it exits non-zero before printing any result.  Every port
+CLI that runs in a fresh interpreter does so under a sitecustomize.py
+(BLOCKER) that makes `import platypus_tpu` and `import jax` raise, in
+that process and in every process it spawns; the port imports nothing of
+the JAX package.  Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel library of align_cuda.KERNELS -- K1, the
    banded-alignment DP (csrc/band_align.cu), and K2, its traceback mode
-   (csrc/band_align_tb.cu) -- one nvcc each for sm_90a, started together;
+   (csrc/band_align_tb.cu) -- one nvcc each for sm_90a, and the port's
+   native host library (platypus_tpu_torch/native/src, g++), all started
+   together; prints the native library's path and each kernel's loop in
+   SASS (cuobjdump), beside the operations bound() counts;
 3. kernel: each CUDA kernel bitwise against its plain torch version on
    the card -- every reference golden (K2: the flank goldens, whose
    alignments the host backtrace must reproduce from K2's label words),
    and main-path shapes (B = 16384, 2048 and 2000 pairs at read lengths
    100 and 128, mixed lengths, 'N' bases) -- then each timed with CUDA
-   events against its plain version at B=16384, L2=100;
+   events at B=16384, L2=100 (on the device alone, its launches queued
+   behind a sleep kernel, and back to back as the host launches them)
+   against its plain version, with its bound:
+   the larger of the bytes it must move over the card's memory rate and
+   its int32 operations over the card's int32 rate (bound());
 4. slice: `platypus_tpu_torch.cli.main(["callVariants", ...])` on cuda
    over a synthetic 1 Mb, 30x, 100 bp dataset (ten 100 kb regions; built
    by tests/test_torch_smoke_data.py in a child process, as is the HLA
    panel, since their writers belong to the JAX package), with
-   counters showing K1 and the fused inference ran (this first call also
-   builds the native host library on a fresh checkout); then one more
+   counters showing K1 and the fused inference ran; then one more
    100 kb region with --maxHaplotypes=4 so the beam search aligns through
    K1 too;
 5. reference: the JAX package's CLI pinned to the CPU (native kernels,
@@ -72,14 +82,26 @@ without either it exits non-zero before printing any result.  Phases:
    byte-identical to the reference.
 
 Any ERROR record on the `platypus_tpu` logger fails the run (every
-crash-containment path logs there).  The last two lines of stdout are the
-kernel report and {"ok": true, "device": {...}}.
+crash-containment path logs there), and so does a module of the JAX
+package in this process's sys.modules at the end.  The last two lines of
+stdout are the kernel report and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --walls-against OTHER_CHECKOUT [--pairs 4]
+
+runs none of those phases: it times fresh port CLIs on the 1 Mb slice,
+OTHER_CHECKOUT's (for example an unpacked `git archive` of the parent
+commit; without the blocker, since an older port may import the JAX
+package) and this checkout's, alternating, each checkout warmed once
+(its builds), every run's data lines equal; its last line is a JSON
+summary of the walls.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
+import statistics
 import os
 import subprocess
 import sys
@@ -98,6 +120,62 @@ MAIN_SHAPES = [(16384, 100), (16384, 128), (2048, 100), (2048, 128),
 FLANK_REGION = "chr20:1000-21000"
 HYBRID_REGION, HYBRID_SHARD = "chr20:1000-101000", 5000
 HLA_ALLELES, HLA_REGION_LEN, HLA_COVERAGE = 160, 2000, 30
+
+# The card's memory rate (H100 SXM data sheet) and int32 operations per
+# SM per clock (Hopper: 16 INT32 lanes in each of 4 SM sub-partitions).
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_SM_CLOCK = 64
+# The integer operations the banded DP needs, counted as Hopper integer
+# instructions, each taken to issue at INT32_PER_SM_CLOCK, in their fused
+# forms where the expression allows (IADD3; the DPX min of three, VIMNMX3,
+# and add-then-min, VIADDMNMX, both of which ptxas emits for these
+# kernels), and without the work the kernels' loops do but the result
+# does not need (register moves, the init-row and exit-row compares of
+# every step).  Per pair and step, over the wavefront's 8 rows:
+#   even phase, on 8 rows: m1 = min3(m1, i1, d1), 1; the substitution
+#     cost (match compare and select, its min with the 'N' cost) added
+#     to m1, 4; d1 on rows 1-7 (row 0 is POS_INF):
+#     min(d2 + ge, min(m2, i2) + gap-open), a min, an add and an
+#     add-then-min, 3; i1 on 8 rows: min(i2 + (ge + npr),
+#     m2 + gap-open + npr), a three-input add and an add-then-min, 2:
+#     40 + 21 + 16 = 77;
+#   odd phase: the same, with d2 on 8 rows and i2 on rows 0-6 (row 7 is
+#     POS_INF): 40 + 24 + 14 = 78;
+#   the 'N' cost of the step's one new haplotype base, a compare and a
+#     select (the other rows keep theirs, shifted): 2.
+DP_OPS_PER_STEP = 77 + 78 + 2
+# K2 adds, per row and step, the packed label word of both phases (the m1
+# field masked; the five others shifted, masked and merged, a shift and a
+# LOP3 each: 11) and the six stamps (a LOP3 each), less the 3 + 3 of the
+# two rows forced to POS_INF (d1 row 0 and i2 row 7), whose fields and
+# stamps are constants.
+TB_OPS_PER_STEP = DP_OPS_PER_STEP + 8 * 17 - 6
+# Per pair, once: the init row of both phases (16 selects); K1's exit-row
+# mins (8 rows x 2 phases) and its final add and shift; K2's exit captures
+# (16 selects), its first-strict-minimum over the rows (3 for row 0, 6 for
+# each of rows 1-7) and the score's and index's two ops each.
+OPS_PER_PAIR = {"band_align": 16 + 16 + 2, "band_align_tb": 16 + 16 + 45 + 4}
+# Clock cycles a sleep kernel holds the stream before a timed run (about
+# 0.27 s at 1980 MHz), so the host queues every timed launch meanwhile.
+HOLD_CYCLES = 1 << 29
+
+# A sitecustomize.py for the port's fresh interpreters: `import
+# platypus_tpu` and `import jax` raise there and in every process they
+# spawn (spawned children load sitecustomize from PYTHONPATH too).
+BLOCKER = """
+import importlib.abc
+import sys
+
+
+class _BlockJaxPackage(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("platypus_tpu", "jax"):
+            raise ImportError(f"{name} is blocked in the port's processes")
+        return None
+
+
+sys.meta_path.insert(0, _BlockJaxPackage())
+"""
 
 
 class ErrorRecords(logging.Handler):
@@ -217,20 +295,127 @@ def random_pairs(seed, B, L2):
     return hap, go, read, qual, rl
 
 
-def cuda_ms(fn, iters):
-    """Mean milliseconds of fn() on the current stream (CUDA events)."""
+def cuda_ms(fn, iters, hold=False):
+    """Mean milliseconds of fn() on the current stream (CUDA events).  With
+    `hold`, a sleep kernel holds the stream while the host queues all
+    `iters` calls, so the events time the device alone and not the host's
+    launch rate; it raises if the device reached the start event before
+    the last call was queued."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
+    if hold and start.query():
+        raise RuntimeError("cuda_ms: the hold ended before the host queued "
+                           "every timed call")
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def time_kernel(label, name, fn, plain_fn, padded, outputs):
+    """Phase 3's times of kernel library `name` on `padded` (TIMED_B pairs
+    at TIMED_L2): the device's (launches held, cuda_ms), back to back as
+    the host launches them, and the plain version's; with its bound.
+    Prints them and returns the report fields."""
+    ms = cuda_ms(fn, 20, hold=True)
+    host_ms = cuda_ms(fn, 20)
+    plain_ms = cuda_ms(plain_fn, 3)
+    bound_ms, bound_by = bound(name, padded, outputs)
+    print(f"{label}: B={TIMED_B} L2={TIMED_L2}: cuda {ms:.6f} ms on the device "
+          f"({TIMED_B / ms * 1e3:.1f} pairs/s), {host_ms:.6f} ms back to back "
+          f"from the host; plain torch {plain_ms:.6f} ms "
+          f"({TIMED_B / plain_ms * 1e3:.1f} pairs/s); bound {bound_ms:.6f} ms "
+          f"({bound_by}), {bound_ms / ms:.1%} of it", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def card_rates():
+    """(int32 operations per second, bytes per second) of card 0: SMs x
+    INT32_PER_SM_CLOCK x its maximum SM clock (nvidia-smi), and
+    HBM_BYTES_PER_S."""
+    import torch
+
+    mhz = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_PER_SM_CLOCK * float(mhz) * 1e6, HBM_BYTES_PER_S
+
+
+def needed_ops(name, inputs):
+    """The integer operations kernel library `name` needs on these padded
+    inputs.  K1 returns only the best exit cell, and row r of pair b exits
+    at step read_len_b + r, so the pair needs the steps of read positions
+    0..read_len_b on each row: DP_OPS_PER_STEP x (read_len_b + 1).  K2's
+    label block covers every step, so each pair needs all of them."""
+    n_steps, B = inputs[2].shape
+    if name == "band_align":
+        steps = int((inputs[4].long() + 1).clamp(max=n_steps).sum())
+        return DP_OPS_PER_STEP * steps + OPS_PER_PAIR[name] * B
+    return (TB_OPS_PER_STEP * n_steps + OPS_PER_PAIR[name]) * B
+
+
+def bound(name, inputs, outputs):
+    """(bound_ms, bound_by) of kernel library `name` on these padded
+    inputs and its outputs: the larger of the bytes it must move (every
+    input read once, every output written once) over the memory rate and
+    the operations it needs (needed_ops) over the int32 rate."""
+    n_bytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    n_ops = needed_ops(name, inputs)
+    ops_rate, bytes_rate = card_rates()
+    by_bytes, by_ops = n_bytes / bytes_rate * 1e3, n_ops / ops_rate * 1e3
+    print(f"bound: {name}: {n_ops} integer operations ({by_ops:.6f} ms at "
+          f"{ops_rate / 1e12:.3f} Tops/s), {n_bytes} bytes ({by_bytes:.6f} ms "
+          f"at {bytes_rate / 1e12:.2f} TB/s)", flush=True)
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def sass_loop(name):
+    """Print the opcodes of the longest loop in kernel library `name`'s
+    SASS (`cuobjdump -sass`), per step of the DP (4 loads each), beside
+    the DP_OPS_PER_STEP / TB_OPS_PER_STEP that bound() counts."""
+    import collections
+    import re
+    import shutil
+
+    from platypus_tpu_torch.ops import align_cuda
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    proc = subprocess.run([tool, "-sass", align_cuda.library_path(name)],
+                          capture_output=True, text=True)
+    insts = [(int(m.group(1), 16), m.group(2)) for m in
+             re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", proc.stdout)]
+    loops = []
+    for addr, text in insts:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    if proc.returncode != 0 or not loops:
+        print(f"sass: {name}: not measured (cuobjdump exited "
+              f"{proc.returncode}, {len(loops)} loops)", flush=True)
+        return
+    start, end = max(loops, key=lambda span: span[1] - span[0])
+    ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+                              .split(".")[0]
+                              for addr, text in insts if start <= addr <= end)
+    steps = ops["LDG"] / 4 or 1
+    counted = DP_OPS_PER_STEP if name == "band_align" else TB_OPS_PER_STEP
+    alu = sum(n for op, n in ops.items()
+              if op not in ("LDG", "STG", "BRA", "NOP"))
+    print(f"sass: {name}: loop body {sum(ops.values())} instructions over "
+          f"{steps:g} steps, {alu / steps:.1f} non-memory per step against "
+          f"{counted} counted by bound(); "
+          + ", ".join(f"{op} {n}" for op, n in ops.most_common()), flush=True)
 
 
 def check_kernel(device):
@@ -262,12 +447,11 @@ def check_kernel(device):
 
     padded = align_torch.pad_alignment_inputs(*random_pairs(99, TIMED_B, TIMED_L2),
                                               device=device)
-    ms = cuda_ms(lambda: align_cuda.band_align_padded(*padded), 20)
-    plain_ms = cuda_ms(lambda: align_torch.band_align_padded_reference(*padded), 3)
-    print(f"kernel: B={TIMED_B} L2={TIMED_L2}: cuda {ms:.6f} ms "
-          f"({TIMED_B / ms * 1e3:.1f} pairs/s), plain torch {plain_ms:.6f} ms "
-          f"({TIMED_B / plain_ms * 1e3:.1f} pairs/s)", flush=True)
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=max_err, **time_kernel(
+        "kernel", "band_align",
+        lambda: align_cuda.band_align_padded(*padded),
+        lambda: align_torch.band_align_padded_reference(*padded), padded,
+        [align_cuda.band_align_padded(*padded)]))
 
 
 def check_tb_kernel(device):
@@ -308,13 +492,11 @@ def check_tb_kernel(device):
 
     padded = align_torch.pad_alignment_inputs(*random_pairs(99, TIMED_B, TIMED_L2),
                                               device=device)
-    ms = cuda_ms(lambda: align_cuda.band_align_traceback_padded(*padded), 20)
-    plain_ms = cuda_ms(
-        lambda: align_torch.band_align_traceback_padded_reference(*padded), 3)
-    print(f"kernel K2: B={TIMED_B} L2={TIMED_L2}: cuda {ms:.6f} ms "
-          f"({TIMED_B / ms * 1e3:.1f} pairs/s), plain torch {plain_ms:.6f} ms "
-          f"({TIMED_B / plain_ms * 1e3:.1f} pairs/s)", flush=True)
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=max_err, **time_kernel(
+        "kernel K2", "band_align_tb",
+        lambda: align_cuda.band_align_traceback_padded(*padded),
+        lambda: align_torch.band_align_traceback_padded_reference(*padded),
+        padded, align_cuda.band_align_traceback_padded(*padded)))
 
 
 def build_dataset(kind, workdir, *args):
@@ -395,12 +577,24 @@ def run_port(argv):
     return wall, counts
 
 
-def run_cli(package, argv, env=None):
-    """`python -m <package>.cli <argv>` in a fresh interpreter; returns its
-    wall seconds (interpreter start and imports included)."""
+def port_env(**extra):
+    """The environment of the port's fresh interpreters: this one's, with
+    BLOCKER's directory first on PYTHONPATH (the repository after it) and
+    `extra` laid over it."""
+    site = os.path.join(tempfile.gettempdir(), "platypus_tpu_torch_smoke",
+                        "blocker")
+    os.makedirs(site, exist_ok=True)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as fh:
+        fh.write(BLOCKER)
+    return dict(os.environ, PYTHONPATH=os.pathsep.join([site, REPO]), **extra)
+
+
+def run_cli(package, argv, env=None, cwd=REPO):
+    """`python -m <package>.cli <argv>` in a fresh interpreter in `cwd`;
+    returns its wall seconds (interpreter start and imports included)."""
     cmd = [sys.executable, "-m", f"{package}.cli", *argv]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=900)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -409,10 +603,16 @@ def run_cli(package, argv, env=None):
     return wall
 
 
-def run_port_cli(argv, out, env=None):
-    """The port's CLI on cuda in a fresh interpreter; fails on any ERROR
-    line of its log (`out`.log).  Returns its wall seconds."""
-    wall = run_cli("platypus_tpu_torch", argv, env=env)
+def run_port_cli(argv, out, checkout=None, **env):
+    """The port's CLI on cuda in a fresh interpreter under BLOCKER, `env`
+    laid over its environment; fails on any ERROR line of its log
+    (`out`.log).  With `checkout`, that checkout's port instead, with only
+    it on PYTHONPATH and no blocker.  Returns its wall seconds."""
+    if checkout is None:
+        wall = run_cli("platypus_tpu_torch", argv, env=port_env(**env))
+    else:
+        wall = run_cli("platypus_tpu_torch", argv, cwd=checkout,
+                       env=dict(os.environ, PYTHONPATH=checkout, **env))
     with open(f"{out}.log") as fh:
         errors = [line for line in fh if " - ERROR - " in line
                   or " - CRITICAL - " in line]
@@ -479,7 +679,7 @@ def check_hybrid(info, smi):
     wall = run_port_cli(
         cli_args(info, HYBRID_REGION, out, ("--calculateFlankScore=1", shard,
                                             "--nCPU=2", "--tpuWorkers=1")),
-        out, env=dict(os.environ, PLATYPUS_TPU_DEVICE_SETTLE="0"))
+        out, PLATYPUS_TPU_DEVICE_SETTLE="0")
     summary = pool_summary(out)
     if summary["regions"] < 1 or summary["band_align_tb"] < 1:
         raise AssertionError(f"hybrid: the device worker called no region "
@@ -507,12 +707,11 @@ def check_service(info, region, smi):
     stats_path = os.path.join(workdir, "service_stats.json")
     if os.path.exists(stats_path):
         os.remove(stats_path)
-    env = dict(os.environ, PLATYPUS_TPU_SERVICE_WAIT_READY="120",
-               PLATYPUS_TPU_SERVICE_GRACE="60",
-               PLATYPUS_TPU_SERVICE_STATS=stats_path)
     wall = run_port_cli(
         cli_args(info, region, out, ("--nCPU=2", "--tpuWorkers=0",
-                                     "--inferenceService=1")), out, env=env)
+                                     "--inferenceService=1")), out,
+        PLATYPUS_TPU_SERVICE_WAIT_READY="120", PLATYPUS_TPU_SERVICE_GRACE="60",
+        PLATYPUS_TPU_SERVICE_STATS=stats_path)
     with open(stats_path) as fh:
         stats = json.load(fh)
     if (stats["backend"] != "cuda" or stats["requests"] <= 0
@@ -594,7 +793,7 @@ def check_mesh_cli(info, region, smi):
     """Phase 12: --meshDevices=-1 through the port's CLI, on the slice and
     (flank scores) on FLANK_REGION, against the reference's default runs."""
     workdir = info["workdir"]
-    env = dict(os.environ, PLATYPUS_TPU_MESH_TIMERS="1")
+    env = port_env(PLATYPUS_TPU_MESH_TIMERS="1")
     for name, reg, extra, ref_name, kernel in (
             ("mesh", region, (), "reference.vcf", "band_align"),
             ("mesh_flank", FLANK_REGION, ("--calculateFlankScore=1",),
@@ -724,9 +923,9 @@ def check_distributed(info, region, smi):
             argv = cli_args(info, region, out, ("--distributed=1",))
             argv[argv.index(f"--logFileName={out}.log")] = \
                 f"--logFileName={out}.{rank}.log"
-            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
-                       MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
-                       LOCAL_RANK=str(rank))
+            env = port_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                           WORLD_SIZE="2", RANK=str(rank),
+                           LOCAL_RANK=str(rank))
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", COUNTED_CLI, *argv], cwd=REPO, env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -779,12 +978,49 @@ def compare_three(what, workdir, name, argv_of):
     return wall, counts, cli_wall, ref_wall, n_lines
 
 
+def compare_walls(other, pairs, smi):
+    """--walls-against: fresh slice CLIs of checkout `other` and of this
+    one, each warmed once, then `pairs` timed pairs in alternating order
+    (other, this, this, other, ...); every run's data lines equal the
+    first's.  Prints each wall, then a JSON summary as the last line."""
+    workdir = os.path.join(tempfile.gettempdir(), "platypus_tpu_torch_smoke",
+                           f"mb{SLICE_MB:g}")
+    info = build_dataset("slice", workdir, SLICE_MB)
+    region = f"chr20:1000-{info['length'] + 1000}"
+    checkouts = {"other": os.path.abspath(other), "this": None}
+    walls = {name: [] for name in checkouts}
+    want = None
+    for k in range(-1, pairs):
+        order = list(checkouts) if k % 2 == 0 else list(checkouts)[::-1]
+        for name in order:
+            out = os.path.join(workdir, f"walls_{name}_{k}.vcf")
+            wall = run_port_cli(cli_args(info, region, out), out,
+                                checkout=checkouts[name])
+            want = want or data_lines(out)
+            if data_lines(out) != want:
+                raise AssertionError(f"walls: {name} run {k}: data lines differ")
+            if k >= 0:
+                walls[name].append(wall)
+            print(f"walls: {'warm-up' if k < 0 else f'pair {k}'} {name}: "
+                  f"{wall:.6f} s", flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"lines": len(want), "card": smi, "other": other, **{
+        name: {"walls": w, "median": statistics.median(w)}
+        for name, w in walls.items()}}), flush=True)
+    return 0
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--walls-against", metavar="OTHER_CHECKOUT")
+    parser.add_argument("--pairs", type=int, default=4)
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    from platypus_tpu_torch import native
     from platypus_tpu_torch.engine import caller as port_caller
     from platypus_tpu_torch.ops import align_cuda
 
@@ -800,19 +1036,36 @@ def main() -> int:
     print(smi, flush=True)
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)", flush=True)
+    if args.walls_against:
+        return compare_walls(args.walls_against, args.pairs, smi)
 
-    # 2. build: one nvcc per kernel source, all started together
+    # 2. build: one nvcc per kernel source and the native host library,
+    # all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(align_cuda.KERNELS)) as pool:
+
+    def timed(fn, *args):
+        start = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - start
+
+    with ThreadPoolExecutor(len(align_cuda.KERNELS) + 1) as pool:
+        native_s = pool.submit(timed, native.build)
         list(pool.map(align_cuda.build, align_cuda.KERNELS))
+        native_s = native_s.result()
     for name in align_cuda.KERNELS:
         align_cuda.load(name)
-    print(f"build: {', '.join(align_cuda.KERNELS)} kernels in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    lib = native.load()
+    if lib is None or lib._name != native.library_path():
+        raise RuntimeError(f"the port's native library did not build: {lib}")
+    print(f"build: {', '.join(align_cuda.KERNELS)} kernels and the native "
+          f"library in {time.perf_counter() - t0:.3f} s (native {native_s:.3f} s)",
+          flush=True)
+    print(f"native: the port loaded {lib._name}", flush=True)
     for name in align_cuda.KERNELS:
         for line in align_cuda.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: ptxas: {line.strip()}", flush=True)
+        sass_loop(name)
 
     # 3. kernel
     report = {"band_align": check_kernel(device),
@@ -941,8 +1194,10 @@ def main() -> int:
     check_dryrun(smi, torch.device("cuda", 0))
     check_distributed(info, region, smi)
     errors.check("mesh, dry run, distributed")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported by the port")
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "platypus_tpu"))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked[:5]}")
 
     print(json.dumps({"kernels": [
         dict(name=lib, route="cuda", source=f"platypus_tpu_torch/csrc/{lib}.cu",

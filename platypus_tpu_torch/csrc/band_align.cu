@@ -3,15 +3,18 @@
 // Replaces platypus_tpu/ops/align_pallas.py::_band_align_kernel (called
 // through band_align_padded_pallas).  Same contract as the plain torch
 // version platypus_tpu_torch/ops/align_torch.py::band_align_padded_reference
-// and the scalar spec platypus_tpu/ops/align_core.py::band_align_single:
+// and the scalar spec platypus_tpu_torch/ops/align_core.py::band_align_single:
 // quality-aware banded min-plus alignment in quarter-phred int32, an 8-cell
 // antidiagonal wavefront, two phases per read base, M/I/D states, free
 // haplotype end gaps, position-specific gap-open.  Returns
 // (min exit cell + 0x8000) >> 2 per pair, bit-identical to the reference.
 //
-// What bounds it: int32 ALU issue.  Each (pair, step) does about 50
-// integer min/add/compare/select operations per wavefront cell and reads
-// four int32 words, so device-memory bytes are negligible.
+// What bounds it: int32 ALU issue.  The DP needs 157 integer instructions
+// per (pair, step) over the 8 wavefront rows (chip_smoke.py
+// DP_OPS_PER_STEP) and reads four int32 words, so device-memory bytes are
+// negligible.  The result needs only the steps up to read_len + 7; this
+// loop runs all n_steps, and the init-row and exit-row compares on every
+// step.
 //
 // Design: one thread per pair, blocks of 128 threads, the ragged edge
 // masked with b < B (no lane padding).  All wavefront state lives in

@@ -4,7 +4,7 @@
 // through band_align_traceback_padded_pallas), the kernel behind
 // --calculateFlankScore.  Same contract as the plain torch version
 // platypus_tpu_torch/ops/align_torch.py::band_align_traceback_padded_reference
-// and the scalar spec platypus_tpu/ops/align_core.py::band_align_traceback:
+// and the scalar spec platypus_tpu_torch/ops/align_core.py::band_align_traceback:
 // the DP of band_align.cu, except that the low two bits of every cell carry
 // the label of its predecessor state (M=00, I=01, D=11), so scores differ
 // from band_align.cu's by up to 3 quarter-units.  Per pair it returns the
@@ -14,11 +14,14 @@
 // 8-15) that the host backtrace (align_core.unpack_backpointers,
 // traceback_from_backpointers) walks.
 //
-// What bounds it: the label stream.  Each (pair, step) stores 8 int32
-// words (32 bytes) against about 60 integer operations per cell, so at
-// B=16384 and 100 bp reads the kernel writes 57 MB where band_align.cu
-// writes 64 KB.  Stores go column-major into [n_steps*8, B], one row per
-// word, so a warp's 32 threads write 128 contiguous bytes per word.
+// What bounds it: int32 ALU issue, with the label stream second.  Each
+// (pair, step) needs 287 integer instructions over the 8 rows, 130 of them
+// for the label words and stamps (chip_smoke.py TB_OPS_PER_STEP), and
+// stores 8 int32 words (32 bytes), so at B=16384 and
+// 100 bp reads the kernel writes 57 MB where band_align.cu writes 64 KB;
+// at the card's rates the operations still take longer than the bytes.
+// Stores go column-major into [n_steps*8, B], one row per word, so a
+// warp's 32 threads write 128 contiguous bytes per word.
 //
 // Design: one thread per pair, blocks of 128 threads, the ragged edge
 // masked with b < B.  As in band_align.cu every 8-entry state is a fully

@@ -1,17 +1,22 @@
-"""HLA typing mode of the torch port: region-length haplotype genotyping.
+"""HLA typing mode: region-length haplotype genotyping.
 
-Twins of the functions of platypus_tpu/engine/hla.py that reach the
-scorer -- _rank_haplotypes_two_rounds, get_all_hla_haplotypes_in_region,
-get_all_assembler_haplotypes_in_region, call_hla_window_long_vars,
-output_hla_call_to_vcf and call_hla_variants_in_region -- each scoring
-through the port on an explicit `device`.  The model is the JAX package's
-(see its module docstring); so is the host code used here: candidate
-normalisation, windows, haplotypes, the source-VCF reader and region
-loading.
+Reimplements the reference's HLA path (variantcaller.pyx:146-206,619-738;
+variantFilter.pyx:654-744,804-901; vcfutils.pyx:602-792):
 
-Crash containment differs in one way: a window whose call fails on the
-host is skipped and logged as there, but a DeviceError (any failure of the
-port's device work) propagates and stops the run.
+* assembly-derived candidates are called per window with the standard model
+  and the winning haplotypes re-expressed as whole-window replacement
+  variants;
+* candidate region haplotypes come from the source VCF (one haplotype per
+  FILE variant) and from all valid combinations of the assembler's long
+  variants, ranked by read likelihood (capped at HLA_MAX_HAPLOTYPES) when
+  too many;
+* the final call scores ALL ordered haplotype pairs per sample with
+  map-quality-capped likelihoods, reporting GT:GL:NR:NV1:NV2 plus a
+  confidence score from the top-two likelihood gap.
+
+Every scoring step runs on `device` (a torch device, or None for the host
+path).  A window whose call fails on the host is skipped and logged, but a
+DeviceError (any failure of the device work) propagates and stops the run.
 """
 
 from __future__ import annotations
@@ -22,32 +27,30 @@ from itertools import combinations
 from typing import List, Sequence, Tuple
 
 import numpy as np
-import torch
 
-from platypus_tpu.candidates.normalize import (is_haplotype_valid,
-                                               normalise_var, trim_long_var)
-from platypus_tpu.candidates.variant import ASSEMBLER_VAR, FILE_VAR, Variant
-from platypus_tpu.candidates.windows import Window, generate_windows
-from platypus_tpu.config import PlatypusConfig, RuntimeState
-from platypus_tpu.engine.hla import HLA_MAX_HAPLOTYPES
-from platypus_tpu.engine.region import (generate_variants_in_region,
-                                        load_region_buffers)
-from platypus_tpu.engine.score import gather_window_reads
-from platypus_tpu.io.vcfsource import VariantCandidateReader
-from platypus_tpu.models.haplotype import Haplotype, merge_haplotypes
-from platypus_tpu.ops.likelihood import LOG_HALF
-
+from ..candidates.normalize import (is_haplotype_valid, normalise_var,
+                                    trim_long_var)
+from ..candidates.variant import ASSEMBLER_VAR, FILE_VAR, Variant
+from ..candidates.windows import Window, generate_windows
+from ..config import PlatypusConfig, RuntimeState
+from ..io.vcfsource import VariantCandidateReader
+from ..models.haplotype import Haplotype, merge_haplotypes
+from ..ops.likelihood import LOG_HALF
 from ..utils.backend import DeviceError
 from .caller import call_window
-from .score import score_reads_vs_haplotypes
+from .region import generate_variants_in_region, load_region_buffers
+from .score import gather_window_reads, score_reads_vs_haplotypes
 
 logger = logging.getLogger("platypus_tpu")
+
+# Cap on the ranked region haplotypes (the reference's 150).
+HLA_MAX_HAPLOTYPES = 150
 
 
 def _rank_haplotypes_two_rounds(
     haps: List[Haplotype], reads, n_individuals: int, original_max: int,
     per_round_out: int, window_size: int, target_coverage: int,
-    device: torch.device,
+    device,
 ) -> List[Haplotype]:
     """The reference's two-round region ranking (hla.py:38-112): round 1
     ranks each haplotype alone by its summed read log-likelihoods, round 2
@@ -114,7 +117,7 @@ def _rank_haplotypes_two_rounds(
 def get_all_hla_haplotypes_in_region(
     chrom: str, start: int, end: int, ref_file, config: PlatypusConfig,
     rt: RuntimeState, variants: Sequence[Variant], reads, n_individuals: int,
-    device: torch.device,
+    device,
 ) -> List[Haplotype]:
     """One haplotype per FILE variant; rank if > 150 (hla.py:115-131)."""
     haps = [
@@ -134,7 +137,7 @@ def get_all_hla_haplotypes_in_region(
 def get_all_assembler_haplotypes_in_region(
     chrom: str, start: int, end: int, ref_file, config: PlatypusConfig,
     rt: RuntimeState, variants: Sequence[Variant], reads, n_individuals: int,
-    device: torch.device,
+    device,
 ) -> List[Haplotype]:
     """All valid combinations of trimmed assembler long variants, ranked
     when too many (hla.py:134-159)."""
@@ -160,7 +163,7 @@ def get_all_assembler_haplotypes_in_region(
 
 def call_hla_window_long_vars(window: Window, buffers, ref_file,
                               config: PlatypusConfig, rt: RuntimeState,
-                              device: torch.device) -> List[Variant]:
+                              device) -> List[Variant]:
     """Standard window call on `device`, then the winning haplotypes as
     whole-window replacement variants (hla.py:162-180)."""
     result = call_window(window, buffers, ref_file, config, rt, device)
@@ -182,7 +185,7 @@ def call_hla_window_long_vars(window: Window, buffers, ref_file,
 
 def output_hla_call_to_vcf(haplotypes: List[Haplotype], buffers, ref_file,
                            config: PlatypusConfig, out, window_start: int,
-                           window_end: int, device: torch.device) -> None:
+                           window_end: int, device) -> None:
     """All-ordered-pairs genotyping + one VCF line (hla.py:183-322), with
     map-quality-capped likelihoods scored on `device`."""
     n_ind = len(buffers)
@@ -324,7 +327,7 @@ def output_hla_call_to_vcf(haplotypes: List[Haplotype], buffers, ref_file,
 
 def call_hla_variants_in_region(
     chrom: str, start: int, end: int, bam_files, samples_by_bam, ref_file,
-    config: PlatypusConfig, rt: RuntimeState, out, device: torch.device,
+    config: PlatypusConfig, rt: RuntimeState, out, device,
 ) -> int:
     """One HLA typing region (hla.py:325-419) on `device`."""
     ref_file.set_cache_sequence(chrom, start - 10 * rt.rlen, end + 10 * rt.rlen)

@@ -8,10 +8,14 @@ entry(device)               -> (forward step on the flagship compute path,
                                log-likelihood conversion.
 dryrun_multichip(n, device) -> the demo calling step on an n-shard mesh,
                                then the production path: a synthetic BAM +
-                               FASTA through the port's region preparation
-                               and mesh_call_region, with and without
-                               --calculateFlankScore, checked against the
-                               float64 host path for identical calls.
+                               FASTA (simulate_dataset) through the port's
+                               region preparation and mesh_call_region,
+                               with and without --calculateFlankScore,
+                               checked against the float64 host path for
+                               identical calls.
+
+Both run on the card unless the caller names another device: `device`
+None means CUDA, and raises without a card (utils/backend.resolve_device).
 
 check_mesh_region is the production check on any prepared region and any
 meshes; chip_smoke.py runs it on the card.
@@ -21,32 +25,31 @@ from __future__ import annotations
 
 import contextlib
 import os
-import sys
 import tempfile
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from platypus_tpu.config import PlatypusConfig, derive_runtime
-from platypus_tpu.engine.caller import finish_window
-from platypus_tpu.engine.runner import open_bams
-from platypus_tpu.io.fasta import FastaFile
-
+from .config import PlatypusConfig, derive_runtime
+from .engine.caller import finish_window
 from .engine.region import prepare_region_call
+from .engine.runner import open_bams
+from .io.bam import write_bam
+from .io.fasta import FastaFile, build_index
 from .ops.align_cuda import band_align_padded
 from .ops.align_torch import pad_alignment_inputs
 from .ops.likelihood_torch import scores_to_logliks
 from .parallel import mesh as mesh_mod
+from .utils.backend import resolve_device
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-def entry(device="cpu"):
+def entry(device=None):
     """(forward, args): B = 256 pairs of 100 bp reads cut from random
     haplotypes (the inputs of __graft_entry__.entry, from the same seed),
-    padded on `device`; forward aligns them and converts the scores to
-    per-read log-likelihoods at mapping quality 60."""
+    padded on `device` (None: the card); forward aligns them and converts
+    the scores to per-read log-likelihoods at mapping quality 60."""
+    device = resolve_device(device)
     rng = np.random.default_rng(0)
     B, L2 = 256, 100
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -154,29 +157,77 @@ def check_mesh_region(config: PlatypusConfig, region, device,
         ref.close()
 
 
-def dryrun_multichip(n_devices: int, device="cpu") -> dict:
+def simulate_dataset(directory: str, length: int = 3000, seed: int = 7,
+                     read_len: int = 80, coverage: int = 24):
+    """A reference `chr20` of `length` random bases (ref.fa, indexed) and
+    single-end reads (reads.bam, sample S1) over [500, length - 200),
+    alternating between the reference and a haplotype with three planted
+    variants: a SNP at 800, TG inserted before 1600, and the two bases at
+    2300 deleted.  Returns (FASTA path, BAM path)."""
+    rng = np.random.default_rng(seed)
+    ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=length).tobytes()
+    ref_path = os.path.join(directory, "ref.fa")
+    with open(ref_path, "w") as fh:
+        fh.write(">chr20\n")
+        for i in range(0, length, 60):
+            fh.write(ref[i : i + 60].decode() + "\n")
+    build_index(ref_path)
+    snp = b"A" if ref[800] != ord("A") else b"C"
+    # Each haplotype as its bases and, per base, the reference position it
+    # stands on (-1 for an inserted base).
+    alt, alt_pos, cur = bytearray(), [], 0
+    for pos, removed, added in ((800, 1, snp), (1600, 0, b"TG"),
+                                (2300, 2, b"")):
+        alt += ref[cur:pos]
+        alt_pos += range(cur, pos)
+        alt += added
+        alt_pos += range(pos, pos + len(added)) if removed else [-1] * len(added)
+        cur = pos + removed
+    alt += ref[cur:]
+    alt_pos += range(cur, length)
+    haps = [(ref, list(range(length))), (bytes(alt), alt_pos)]
+    reads = []
+    lo, hi = 500, length - 200
+    for i in range(int((hi - lo) * coverage / read_len)):
+        seq, ref_of = haps[i % 2]
+        start = int(rng.integers(lo, hi - read_len))
+        h = ref_of.index(start) if start in ref_of else -1
+        if h < 0 or h + read_len > len(seq):
+            continue
+        cigar, prev = [], None
+        for p in ref_of[h : h + read_len]:
+            if p < 0:
+                op = 1
+            else:
+                if prev is not None and p > prev + 1:
+                    cigar.append([2, p - prev - 1])
+                op, prev = 0, p
+            if cigar and cigar[-1][0] == op:
+                cigar[-1][1] += 1
+            else:
+                cigar.append([op, 1])
+        reads.append(dict(name=f"r{i}", ref_id=0, pos=start, mapq=60, flag=0,
+                          cigar=[tuple(c) for c in cigar],
+                          seq=seq[h : h + read_len], qual=[35] * read_len))
+    reads.sort(key=lambda r: r["pos"])
+    bam_path = os.path.join(directory, "reads.bam")
+    write_bam(bam_path, [("chr20", length)], reads, sample="S1")
+    return ref_path, bam_path
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
     """The demo calling step on get_engine_mesh(n_devices, device), then
     the production check (check_mesh_region, against a 1-shard mesh too)
-    on a synthetic 3 kb region with three planted variants, in default and
-    --calculateFlankScore mode.  Returns each mode's counts."""
+    on a synthetic 3 kb region with three planted variants
+    (simulate_dataset), in default and --calculateFlankScore mode.
+    `device` None means the card.  Returns each mode's counts."""
+    device = resolve_device(device)
     mesh_mod.dryrun_multichip(n_devices, device)
-    sys.path.insert(0, os.path.join(_REPO, "tests"))
-    from synth import (SimHaplotype, make_reference, simulate_reads,
-                       write_synth_bam)
-
     meshes = [mesh_mod.get_engine_mesh(1, device),
               mesh_mod.get_engine_mesh(n_devices, device)]
     out = {}
     with tempfile.TemporaryDirectory() as td:
-        ref_path, ref_seq = make_reference(td, length=3000, seed=7)
-        alt = SimHaplotype(ref_seq, [
-            (800, 1, b"A" if ref_seq[800] != ord("A") else b"C"),
-            (1600, 0, b"TG"),
-            (2300, 2, b""),
-        ])
-        reads = simulate_reads([SimHaplotype(ref_seq, []), alt], 500, 2800,
-                               read_len=80, coverage=24)
-        bam_path = write_synth_bam(td, reads, ref_len=3000)
+        ref_path, bam_path = simulate_dataset(td)
         for flank in (0, 1):
             config = PlatypusConfig(bam_files=[bam_path], ref_file=ref_path,
                                     output="-", mesh_devices=n_devices,

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from platypus_tpu.ops.align_core import N_LANES, POS_INF
+from .align_core import N_LANES, POS_INF
 
 _N_CHAR = ord("N")
 _PAD_CHAR = ord("0")

@@ -3,8 +3,8 @@
 Twin of platypus_tpu/ops/likelihood_jax.py.  The JAX version vmaps a
 per-window function; here the window axis W is written out as the leading
 dimension of every tensor.  The float64 host kernels in
-platypus_tpu/ops/likelihood.py stay the numeric oracle, and the engine's
-f64-exactness guard (platypus_tpu/engine/caller._device_window_needs_host)
+ops/likelihood.py stay the numeric oracle, and the engine's
+f64-exactness guard (engine/caller._device_window_needs_host)
 decides per window whether these f32 results may be emitted.
 
 The [G, R] x [R, I] contractions must run in full f32 (never TF32 or

@@ -1,11 +1,10 @@
 """Multi-host execution of the torch port: region sharding over
 torch.distributed.
 
-Twin of platypus_tpu/parallel/distributed.py.  Every process of the run
-calls `initialize()`, takes its round-robin share of the regions
-(shard_regions, the JAX package's host code), calls it into its own
-temp VCF on its own device, and after a barrier process 0 merges the
-shares with the JAX package's merge_vcf_files.  No device tensor crosses
+Every process of the run calls `initialize()`, takes its round-robin share
+of the regions (shard_regions), calls it into its own temp VCF on its own
+device, and after a barrier process 0 merges the shares with
+engine/runner.merge_vcf_files.  No device tensor crosses
 processes: the only collectives carry host counters and the barrier, so
 the process group is gloo on the GPU too (NCCL would also refuse two
 ranks on one card).  Rank r runs on cuda:{LOCAL_RANK % device_count}
@@ -27,17 +26,15 @@ import argparse
 import logging
 import os
 import sys
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from platypus_tpu.config import PlatypusConfig
-from platypus_tpu.engine.runner import get_regions, merge_vcf_files
-from platypus_tpu.parallel.distributed import shard_regions
-from platypus_tpu.utils.observability import GLOBAL_METRICS
-
+from ..config import PlatypusConfig
+from ..engine.runner import Region, get_regions, merge_vcf_files
 from ..utils.backend import require_cuda
+from ..utils.observability import GLOBAL_METRICS
 
 logger = logging.getLogger("platypus_tpu")
 
@@ -63,6 +60,21 @@ def initialize(coordinator_address: Optional[str] = None,
     if not dist.is_initialized():
         return 0, 1
     return dist.get_rank(), dist.get_world_size()
+
+
+def shard_regions(regions: List[Region], process_index: int,
+                  process_count: int) -> List[Region]:
+    """Deterministic round-robin region assignment (the reference's
+    runner.py:470-474 scheme, by host instead of by fork)."""
+    return [r for i, r in enumerate(regions) if i % process_count == process_index]
+
+
+def shutdown() -> None:
+    """Leave the run's process group.  A process that exits with the group
+    still up can abort in gloo's teardown ("terminate called without an
+    active exception") after its work is done."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def rank_device(device=None) -> torch.device:
@@ -137,7 +149,7 @@ def _main(argv=None, device=None) -> int:
     of a multi-host run: the callVariants flags plus --coordinatorAddress,
     --numProcesses and --processId (torchrun's environment without them).
     `device` None means this rank's CUDA device."""
-    from platypus_tpu.cli import build_config
+    from ..cli import build_config
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
@@ -153,6 +165,7 @@ def _main(argv=None, device=None) -> int:
     run_distributed(config, device, coordinator_address=known.coordinatorAddress,
                     num_processes=known.numProcesses,
                     process_id=known.processId)
+    shutdown()
     return 0
 
 

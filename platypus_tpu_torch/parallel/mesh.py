@@ -36,21 +36,17 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from platypus_tpu.engine.score import window_loglik_from_pair_scores
-from platypus_tpu.ops.kmer import HASH_NUCS
-from platypus_tpu.ops.likelihood import genotype_index_pairs
-from platypus_tpu.parallel.batch import (WindowInference,
-                                         enumerate_window_variants,
-                                         geom_bucket)
-
-from ..engine.score import flank_pair_scores
+from ..engine.score import flank_pair_scores, window_loglik_from_pair_scores
 from ..ops.align_cuda import band_align_padded
 from ..ops.align_torch import gather_pad
+from ..ops.kmer import HASH_NUCS
+from ..ops.likelihood import genotype_index_pairs
 from ..ops.likelihood_torch import (em_frequencies, genotype_log_likelihoods,
                                     infer_window_batch, rescale_likelihoods,
                                     scores_to_logliks,
                                     variant_posterior_ratio)
 from ..utils.backend import fetch
+from .batch import WindowInference, enumerate_window_variants, geom_bucket
 
 _INT32_BIG = int(np.iinfo(np.int32).max)
 

@@ -1,18 +1,22 @@
 """Device selection and host transfer for the torch port.
 
-Counterpart of platypus_tpu/utils/backend.py.  The JAX package infers its
-backend from the environment; the port instead threads an explicit
-`torch.device` through every entry point, and a run that asks for CUDA
-without a card fails here instead of quietly running on the CPU.
+The port threads an explicit `torch.device` through every entry point, and
+a run that asks for CUDA without a card fails here instead of quietly
+running on the CPU.  The device `None` inside the engine means the host
+path of a pool's host worker: native alignment and float64 inference,
+without torch.  This module imports torch only inside the functions that
+need it, so that path never loads it.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import List, Optional, Sequence
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 import numpy as np
-import torch
+
+if TYPE_CHECKING:
+    import torch
 
 
 class DeviceError(RuntimeError):
@@ -25,19 +29,27 @@ class DeviceError(RuntimeError):
 
 
 @contextmanager
-def device_stage(what: str):
-    """Run a device stage of the region pipeline: whatever it raises leaves
-    as DeviceError (naming `what`), which every host containment re-raises."""
+def device_stage(device, what: str):
+    """Run a device stage of the region pipeline on `device`: whatever it
+    raises leaves as DeviceError (naming `what` and the device), which
+    every host containment re-raises.  With `device` None the stage runs
+    on the host, and what it raises passes unchanged to the host
+    containments."""
+    if device is None:
+        yield
+        return
     try:
         yield
     except DeviceError:
         raise
     except Exception as exc:
-        raise DeviceError(f"{what} failed: {exc}") from exc
+        raise DeviceError(f"{what} on {device} failed: {exc}") from exc
 
 
-def require_cuda() -> torch.device:
+def require_cuda() -> "torch.device":
     """The CUDA device, or RuntimeError when this process has no card."""
+    import torch
+
     if not torch.cuda.is_available():
         raise RuntimeError(
             "platypus_tpu_torch needs a CUDA device and none is available; "
@@ -45,20 +57,24 @@ def require_cuda() -> torch.device:
     return torch.device("cuda")
 
 
-def resolve_device(device: Optional[object] = None) -> torch.device:
+def resolve_device(device: Optional[object] = None) -> "torch.device":
     """None means CUDA (and raises without a card); anything else is
     taken as given."""
+    import torch
+
     if device is None:
         return require_cuda()
     return torch.device(device)
 
 
-def fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+def fetch(tensors: Sequence["torch.Tensor"]) -> List[np.ndarray]:
     """Copy tensors of one device to host numpy arrays in ONE
     device->host transfer: their bytes, concatenated on the device, so
     the tensors may differ in dtype."""
     if not tensors:
         return []
+    import torch
+
     flat = torch.cat([t.reshape(-1).view(torch.uint8)
                       for t in tensors]).cpu().numpy()
     out, off = [], 0

@@ -18,10 +18,11 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from platypus_tpu.config import PlatypusConfig
+from platypus_tpu_torch.config import PlatypusConfig
 from platypus_tpu_torch.parallel import distributed as port_dist
 from torch_pool_util import (REGION, REPO, cli_args, data_lines, fresh_env,
-                             make_dataset, reference_lines, time_limit)
+                             importers, make_dataset, reference_lines,
+                             time_limit)
 
 # Seven regions, shared out round-robin between the two processes.
 SHARDS = "--bufferSize=4000"
@@ -66,8 +67,8 @@ def _run_pair(tmp_path, code_of, env_of=lambda rank: {}):
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=10)
-    assert not [line for line in import_log.read_text().splitlines()
-                if line.startswith("jax")]
+    imports = import_log.read_text().splitlines()
+    assert not importers(imports, "jax") and not importers(imports, "platypus_tpu")
     return outs
 
 
@@ -81,9 +82,9 @@ def test_two_processes_match_the_single_process_run(tmp_path, dataset):
 
     def code(rank):
         return f"""
-from platypus_tpu.config import PlatypusConfig
+from platypus_tpu_torch.config import PlatypusConfig
 from platypus_tpu_torch.parallel.distributed import (aggregate_metrics,
-                                                     run_distributed)
+                                                     run_distributed, shutdown)
 
 cfg = PlatypusConfig(bam_files=[{workdir + '/reads.bam'!r}],
                      ref_file={ref_path!r}, regions=[{REGION.split('=')[1]!r}],
@@ -92,6 +93,7 @@ run_distributed(cfg, "cpu", coordinator_address="127.0.0.1:{port}",
                 num_processes=2, process_id={rank})
 totals = aggregate_metrics({{"reads": 10.0 * ({rank} + 1), "only{rank}": 1.5}})
 print("TOTALS", sorted(totals.items()))
+shutdown()
 """
 
     outs = _run_pair(tmp_path, code)
@@ -104,7 +106,8 @@ print("TOTALS", sorted(totals.items()))
 
 def test_module_command_line(tmp_path, dataset):
     """`python -m platypus_tpu_torch.parallel.distributed callVariants ...
-    --coordinatorAddress --numProcesses --processId`, as its _main."""
+    --coordinatorAddress --numProcesses --processId`, as its _main, which
+    leaves the process group before it returns."""
     workdir, ref_path, want = dataset
     port = _free_port()
     out = str(tmp_path / "dist_cli.vcf")
@@ -113,8 +116,11 @@ def test_module_command_line(tmp_path, dataset):
         argv = [*cli_args(workdir, ref_path, out, [SHARDS]),
                 f"--coordinatorAddress=127.0.0.1:{port}", "--numProcesses=2",
                 f"--processId={rank}"]
-        return ("from platypus_tpu_torch.parallel.distributed import _main\n"
-                f"raise SystemExit(_main({argv!r}, device='cpu'))\n")
+        return ("import torch.distributed as dist\n"
+                "from platypus_tpu_torch.parallel.distributed import _main\n"
+                f"rc = _main({argv!r}, device='cpu')\n"
+                "assert not dist.is_initialized(), 'the group is still up'\n"
+                "raise SystemExit(rc)\n")
 
     _run_pair(tmp_path, code)
     assert data_lines(out) == want
@@ -122,7 +128,8 @@ def test_module_command_line(tmp_path, dataset):
 
 def test_port_cli_under_torchrun_environment(tmp_path, dataset):
     """The port's CLI with --distributed=1 reads MASTER_ADDR, MASTER_PORT,
-    WORLD_SIZE and RANK, as torchrun sets them."""
+    WORLD_SIZE and RANK, as torchrun sets them, and leaves the process
+    group before it returns."""
     workdir, ref_path, want = dataset
     port = _free_port()
     out = str(tmp_path / "dist_torchrun.vcf")
@@ -132,8 +139,11 @@ def test_port_cli_under_torchrun_environment(tmp_path, dataset):
         return dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                     WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank))
 
-    code = ("from platypus_tpu_torch.cli import main\n"
-            f"raise SystemExit(main({argv!r}, device='cpu'))\n")
+    code = ("import torch.distributed as dist\n"
+            "from platypus_tpu_torch.cli import main\n"
+            f"rc = main({argv!r}, device='cpu')\n"
+            "assert not dist.is_initialized(), 'the group is still up'\n"
+            "raise SystemExit(rc)\n")
     _run_pair(tmp_path, lambda rank: code, env_of)
     assert data_lines(out) == want
 

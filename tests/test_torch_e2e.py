@@ -105,13 +105,13 @@ def test_beam_search_device_failure_stops_the_run(tmp_path, datasets,
                                                   monkeypatch):
     """A kernel failure inside a beam-search window is not contained by the
     window containment: the CLI raises, and no window is skipped."""
-    from platypus_tpu_torch.engine import score as port_score
+    from platypus_tpu_torch.ops import align_cuda
     from platypus_tpu_torch.utils.backend import DeviceError
 
     def failing_kernel(*args, **kwargs):
         raise RuntimeError("band_align kernel launch failed: CUDA error 719")
 
-    monkeypatch.setattr(port_score, "band_align_padded", failing_kernel)
+    monkeypatch.setattr(align_cuda, "band_align_padded", failing_kernel)
     _name, workdir, ref_path = datasets("clustered")
     out = str(tmp_path / "port_fail.vcf")
     with pytest.raises(DeviceError, match="CUDA error 719"):

@@ -3,7 +3,8 @@ the CPU: the port's call_hla_variants_in_region on the tests/test_hla.py
 panel and on a panel of more than 150 alleles (so the two-round ranking
 runs), the CLI with --calculateFlankScore=1 (windows called through the
 traceback DP), and a failing kernel inside an HLA window stopping the run.
-Every comparison is of VCF bytes."""
+Each package reads the panel through its own config, BAM and FASTA
+readers; every comparison is of VCF bytes."""
 
 import io
 from unittest import mock
@@ -12,16 +13,14 @@ import pytest
 import torch
 
 from platypus_tpu.cli import main as jax_cli
-from platypus_tpu.config import PlatypusConfig, derive_runtime
 from platypus_tpu.engine import hla as jax_hla
-from platypus_tpu.io.bam import BamFile
-from platypus_tpu.io.fasta import FastaFile
 from platypus_tpu_torch import cli as port_cli
 from platypus_tpu_torch.engine import hla as port_hla
-from platypus_tpu_torch.engine import score as port_score
+from platypus_tpu_torch.ops import align_cuda
 from platypus_tpu_torch.utils.backend import DeviceError
 from test_hla import hla_setup  # noqa: F401
 from test_torch_smoke_data import hla_dataset
+from torch_twin_util import JAX_PKG, PORT_PKG, module
 
 CPU = torch.device("cpu")
 
@@ -37,16 +36,21 @@ def ranked_panel(tmp_path_factory):
                 vcf_path=info["panel"], region=(start - 1, end))
 
 
-def _call_region(call, panel, **device):
-    config = PlatypusConfig(
+def _call_region(pkg, panel, **device):
+    """call_hla_variants_in_region of package `pkg` on the panel, with that
+    package's config, BAM and FASTA readers."""
+    cfg = module(pkg, "config")
+    config = cfg.PlatypusConfig(
         bam_files=[panel["bam_path"]], ref_file=panel["ref_path"],
         hla_typing=1, long_haps=1, source_file=[panel["vcf_path"]],
         assemble=0, get_variants_from_bams=0, min_reads=2,
     )
-    rt = derive_runtime(config, n_individuals=1)
+    rt = cfg.derive_runtime(config, n_individuals=1)
     rt.rlen = 100
     out = io.StringIO()
-    with BamFile(panel["bam_path"]) as bam, FastaFile(panel["ref_path"]) as ref:
+    call = module(pkg, "engine.hla").call_hla_variants_in_region
+    with module(pkg, "io.bam").BamFile(panel["bam_path"]) as bam, \
+            module(pkg, "io.fasta").FastaFile(panel["ref_path"]) as ref:
         start, end = panel["region"]
         assert call("6", start, end, [bam], {bam: ["SAMPLE1"]}, ref, config,
                     rt, out, **device) == 1
@@ -56,14 +60,13 @@ def _call_region(call, panel, **device):
 @pytest.mark.parametrize("panel_name", ["hla_setup", "ranked_panel"])
 def test_hla_region_matches_jax_package(request, panel_name):
     panel = request.getfixturevalue(panel_name)
-    want = _call_region(jax_hla.call_hla_variants_in_region, panel)
+    want = _call_region(JAX_PKG, panel)
     rank = mock.patch.object(port_hla, "_rank_haplotypes_two_rounds",
                              wraps=port_hla._rank_haplotypes_two_rounds)
     no_jax_rank = mock.patch.object(jax_hla, "_rank_haplotypes_two_rounds",
                                     side_effect=AssertionError)
     with rank as rank_calls, no_jax_rank:
-        got = _call_region(port_hla.call_hla_variants_in_region, panel,
-                           device=CPU)
+        got = _call_region(PORT_PKG, panel, device=CPU)
     assert got == want and got.count("\n") == 1
     assert rank_calls.call_count == (panel_name == "ranked_panel")
 
@@ -90,8 +93,8 @@ def test_hla_flank_cli_matches_jax_package(tmp_path, hla_setup):  # noqa: F811
     assert jax_cli(_hla_cli_args(hla_setup, want_out, tmp_path / "jax.log",
                                  extra)) == 0
     out = str(tmp_path / "port.vcf")
-    tb = mock.patch.object(port_score, "band_align_traceback_padded",
-                           wraps=port_score.band_align_traceback_padded)
+    tb = mock.patch.object(align_cuda, "band_align_traceback_padded",
+                           wraps=align_cuda.band_align_traceback_padded)
     with tb as tb_calls:
         assert port_cli.main(_hla_cli_args(hla_setup, out, tmp_path / "port.log",
                                            extra), device="cpu") == 0
@@ -111,7 +114,7 @@ def test_hla_window_kernel_failure_stops_the_run(tmp_path, hla_setup,  # noqa: F
     def failing_kernel(*args, **kwargs):
         raise RuntimeError("kernel launch failed: CUDA error 719")
 
-    monkeypatch.setattr(port_score, kernel, failing_kernel)
+    monkeypatch.setattr(align_cuda, kernel, failing_kernel)
     window = mock.patch.object(port_hla, "call_hla_window_long_vars",
                                wraps=port_hla.call_hla_window_long_vars)
     log = tmp_path / "port.log"

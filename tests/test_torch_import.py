@@ -1,5 +1,7 @@
-"""Import hygiene of the torch port: it never imports jax, and its CUDA
-wrapper imports on a machine with no nvcc, no triton and no card."""
+"""Import hygiene of the torch port: it never imports jax or the JAX
+package `platypus_tpu` (not even a module of it that imports no jax), and
+its CUDA wrapper imports on a machine with no nvcc, no triton and no
+card."""
 
 import ast
 import os
@@ -12,11 +14,15 @@ import pytest
 import torch
 
 import platypus_tpu_torch
+from platypus_tpu.cli import main as jax_cli
 from platypus_tpu_torch.ops import align_cuda
 from platypus_tpu_torch.utils import backend
+from torch_pool_util import (cli_args, data_lines, fresh_env, importers,
+                             make_dataset, pool_summary)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(platypus_tpu_torch.__file__)
+BLOCKED = ("jax", "platypus_tpu")
 
 
 def _modules():
@@ -45,17 +51,91 @@ def test_importing_every_module_leaves_jax_unloaded():
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
+def _sources():
+    """Every .py file of the port."""
+    return sorted(os.path.join(root, f) for root, _dirs, files in os.walk(PKG_DIR)
+                  for f in files if f.endswith(".py"))
+
+
+def _module_name(path):
+    rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+    return rel[: -len(".__init__")] if rel.endswith(".__init__") else rel
+
+
+def _imports(path):
+    """(line, absolute module name) of every import statement in `path`,
+    relative imports resolved, and of every importlib.import_module /
+    __import__ call whose first argument is a string."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    name = _module_name(path)
+    package = name if path.endswith("__init__.py") else name.rpartition(".")[0]
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, alias.name) for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = package.split(".")
+                parts = parts[: len(parts) - node.level + 1]
+                base = ".".join(parts + ([base] if base else []))
+            out.append((node.lineno, base))
+            out += [(node.lineno, f"{base}.{alias.name}") for alias in node.names]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and ((isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "import_module")
+                   or (isinstance(node.func, ast.Name)
+                       and node.func.id == "__import__"))):
+            out.append((node.lineno, node.args[0].value))
+    return out
+
+
+def _blocked(mod):
+    return mod.split(".")[0] in BLOCKED
+
+
+def import_closure(roots):
+    """The modules of the repository that the files `roots` reach through
+    their imports, transitively: an AST walk, no module is imported.
+    Returns the set of dotted names of repository modules reached."""
+    seen, todo = set(), list(roots)
+    while todo:
+        path = todo.pop()
+        for _line, mod in _imports(path):
+            for cand in (os.path.join(REPO, *mod.split(".")) + ".py",
+                         os.path.join(REPO, *mod.split("."), "__init__.py")):
+                if os.path.exists(cand) and mod not in seen:
+                    seen.add(mod)
+                    todo.append(cand)
+    return seen
+
+
 def test_no_jax_import_in_package_source():
+    """No import statement of the port, top level or indented, and no
+    import_module / __import__ call names jax or the JAX package."""
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
-    sources = []
-    for root, _dirs, files in os.walk(PKG_DIR):
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(root, f)
-                sources.append(path)
-                with open(path) as fh:
-                    assert not pattern.search(fh.read()), path
-    assert len(sources) >= 10
+    sources = _sources()
+    for path in sources:
+        with open(path) as fh:
+            assert not pattern.search(fh.read()), path
+        bad = [(line, mod) for line, mod in _imports(path) if _blocked(mod)]
+        assert not bad, (path, bad)
+    assert len(sources) >= 50
+
+
+def test_import_closure_holds_no_jax_package_module():
+    """The closure tool: every port module and chip_smoke.py reach, through
+    their imports, port modules only -- zero modules of platypus_tpu."""
+    reached = import_closure(_sources() + [os.path.join(REPO, "chip_smoke.py")])
+    assert "platypus_tpu_torch.engine.score" in reached
+    assert "platypus_tpu_torch.native" in reached
+    assert sorted(m for m in reached if _blocked(m)) == []
+    # The tool does find the JAX package where it is imported.
+    jax_reached = import_closure([os.path.join(REPO, "platypus_tpu", "cli.py")])
+    assert "platypus_tpu.engine.runner" in jax_reached
 
 
 def test_cuda_wrapper_imports_without_nvcc_or_triton(tmp_path):
@@ -138,15 +218,59 @@ def test_kernel_table_names_the_tpu_kernels():
 
 
 def test_chip_smoke_imports_no_jax_package():
-    """chip_smoke.py imports neither jax nor the JAX package; it reaches
-    the JAX package's host code only through the port and child processes."""
-    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
-        tree = ast.parse(fh.read())
-    modules = [alias.name for node in ast.walk(tree)
-               if isinstance(node, ast.Import) for alias in node.names]
-    modules += [node.module for node in ast.walk(tree)
-                if isinstance(node, ast.ImportFrom) and node.module]
+    """chip_smoke.py imports neither jax nor the JAX package (nor through
+    import_module / __import__); it runs the reference only as a child
+    process."""
+    modules = [mod for _line, mod in _imports(os.path.join(REPO, "chip_smoke.py"))]
     assert "platypus_tpu_torch.ops" in modules
     for mod in modules:
         root = mod.split(".")[0]
         assert root not in ("jax", "platypus_tpu", "synth", "scaling_bench"), mod
+
+
+@pytest.fixture(scope="module")
+def small_region(tmp_path_factory):
+    """test_device_service.py's 30 kb dataset, called over 12 kb in 3 kb
+    regions, and the JAX CLI's data lines for it (run in this process)."""
+    workdir = str(tmp_path_factory.mktemp("torch_import"))
+    ref_path = make_dataset(workdir)
+    extra = ["--bufferSize=3000"]
+    region = "--regions=chr20:1000-13000"
+    out = os.path.join(workdir, "jax.vcf")
+    assert jax_cli(cli_args(workdir, ref_path, out,
+                            ["--deviceInference=0", *extra], region)) == 0
+    return workdir, ref_path, extra, region, data_lines(out)
+
+
+def test_port_runs_with_jax_package_blocked(tmp_path, small_region):
+    """A fresh interpreter whose meta-path finder (the test sitecustomize,
+    loaded by every process it spawns too) blocks jax and platypus_tpu:
+    every port module imports, and the port's CLI -- one process, then a
+    --nCPU=2 pool with its device worker -- writes the JAX CLI's data
+    lines."""
+    workdir, ref_path, extra, region, want = small_region
+    assert want
+    outs = [str(tmp_path / "one.vcf"), str(tmp_path / "pool.vcf")]
+    runs = [cli_args(workdir, ref_path, outs[0], extra, region),
+            cli_args(workdir, ref_path, outs[1],
+                     [*extra, "--nCPU=2", "--tpuWorkers=1"], region)]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "from platypus_tpu_torch.cli import main\n"
+        f"for argv in {runs!r}:\n"
+        "    assert main(argv, device='cpu') == 0\n"
+        "assert not [m for m in sys.modules\n"
+        "            if m.split('.')[0] in ('jax', 'platypus_tpu')]\n")
+    env, import_log = fresh_env(tmp_path, PTT_TEST_BLOCK_JAX_PACKAGE="1",
+                                PLATYPUS_TPU_DEVICE_SETTLE="0")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    imports = import_log.read_text().splitlines()
+    assert not importers(imports, "jax") and not importers(imports, "platypus_tpu")
+    assert not [name for name in importers(imports, "torch")
+                if name.startswith("ptpu-host")], imports
+    assert pool_summary(f"{outs[1]}.log")["host"] >= 1
+    for out in outs:
+        assert data_lines(out) == want

@@ -14,26 +14,27 @@ ulps, and after 20 EM iterations the frequencies differed by at most
 within rtol 1e-4 / atol 1e-5 and ratios within atol 1e-3, as above.
 """
 
+import sys
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
-from platypus_tpu.config import PlatypusConfig, derive_runtime
-from platypus_tpu.engine.caller import finish_window
-from platypus_tpu.engine.region import prepare_region_call as jax_prepare
-from platypus_tpu.engine.runner import open_bams
-from platypus_tpu.io.fasta import FastaFile
+from platypus_tpu.engine.caller import finish_window as jax_finish_window
 from platypus_tpu.parallel import mesh as jax_mesh
 from platypus_tpu_torch import cli as port_cli
 from platypus_tpu_torch import graft_entry
+from platypus_tpu_torch.config import PlatypusConfig
 from platypus_tpu_torch.engine import region as port_region
 from platypus_tpu_torch.engine import score as port_score
+from platypus_tpu_torch.engine.caller import finish_window
+from platypus_tpu_torch.ops import align_cuda
 from platypus_tpu_torch.parallel import mesh as port_mesh
 from platypus_tpu_torch.utils.backend import DeviceError
 from torch_pool_util import (cli_args, data_lines, make_dataset,
                              reference_lines, run_port_cli, time_limit)
+from torch_twin_util import JAX_PKG, PORT_PKG, prepare
 
 CPU = torch.device("cpu")
 
@@ -68,10 +69,14 @@ def dataset(tmp_path_factory):
     return workdir, make_dataset(workdir)
 
 
-def _config(flank_region, flank, **kw):
+def _config_kw(flank_region, flank):
     bam, ref_path = flank_region
-    return PlatypusConfig(bam_files=[bam], ref_file=ref_path, output="-",
-                          calculate_flank_score=flank, mesh_devices=8, **kw)
+    return dict(bam_files=[bam], ref_file=ref_path, output="-",
+                calculate_flank_score=flank, mesh_devices=8)
+
+
+def _config(flank_region, flank):
+    return PlatypusConfig(**_config_kw(flank_region, flank))
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8])
@@ -118,10 +123,24 @@ def test_calling_step_matches_jax():
     assert np.array_equal(one[2], scores)
 
 
-def test_dryrun_multichip():
+def test_dryrun_multichip(monkeypatch):
+    """The dry run on an 8-shard CPU mesh builds its dataset with the
+    port's own writers: tests/synth.py cannot be imported meanwhile."""
+    monkeypatch.setitem(sys.modules, "synth", None)
     counts = graft_entry.dryrun_multichip(8, CPU)
     for mode in ("default", "flank"):
         assert counts[mode]["windows"] >= 3 and counts[mode]["calls"] >= 3
+
+
+@pytest.mark.parametrize("call", [lambda: graft_entry.entry(),
+                                  lambda: graft_entry.dryrun_multichip(1)],
+                         ids=["entry", "dryrun_multichip"])
+def test_graft_entry_points_default_to_the_card(monkeypatch, call):
+    """Without a device argument both entry points ask for the card, and
+    raise without one rather than fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
 
 
 def test_graft_entry_matches_reference_entry():
@@ -142,31 +161,31 @@ def test_graft_entry_matches_reference_entry():
                                rtol=0, atol=1e-6)
 
 
-def _prepared(config):
-    """The JAX package's preparation of the 6 kb region (no alignment is
-    queued with mesh_devices set): (state, ref, n samples, bam files)."""
-    bam_files, samples_by_bam, samples = open_bams(config)
-    ref = FastaFile(config.ref_file)
-    rt = derive_runtime(config, n_individuals=len(samples))
-    rt.rlen = config.rlen
-    state = jax_prepare("chr20", 0, 6000, bam_files, samples_by_bam, ref,
-                        config, rt)
-    assert state is not None and state.pending is None and state.live
-    return state, ref, len(samples), bam_files
+def _prepared(pkg, flank_region, flank):
+    """Package `pkg`'s own preparation of the 6 kb region (the port's on
+    the CPU; no alignment is queued with mesh_devices set)."""
+    prep = prepare(pkg, ("chr20", 0, 6000), CPU,
+                   **_config_kw(flank_region, flank))
+    assert prep.state is not None and prep.state.pending is None
+    assert prep.state.live
+    return prep
 
 
 @pytest.mark.parametrize("flank", [0, 1], ids=["default", "flank"])
 def test_mesh_call_region_matches_jax(flank_region, flank):
     """Twin of test_device_inference.py:223: the port's mesh_call_region
-    on an 8-shard CPU mesh against JAX's on make_mesh(8), on the same
-    prepared windows (flank windows scored through the port's K2 path)."""
-    config = _config(flank_region, flank)
-    state, ref, n_samples, bams = _prepared(config)
+    on an 8-shard CPU mesh against JAX's on make_mesh(8), each on the
+    windows its own package prepared (flank windows scored through the
+    port's K2 path)."""
+    jax_prep = _prepared(JAX_PKG, flank_region, flank)
+    prep = _prepared(PORT_PKG, flank_region, flank)
+    state, n_samples = prep.state, prep.n_samples
+    assert [w for w, _ in state.live] == [w for w, _ in jax_prep.state.live]
     if flank:
         assert any(p.request is not None and p.request.calculate_flank_score
                    for _, p in state.live)
     want_ll, want_inf, want_left = jax_mesh.mesh_call_region(
-        state.live, n_samples, jax_mesh.make_mesh(8))
+        jax_prep.state.live, n_samples, jax_mesh.make_mesh(8))
     with mock.patch.object(port_score, "_flank_scores",
                            wraps=port_score._flank_scores) as flank_calls:
         got_ll, got_inf, got_left = port_mesh.mesh_call_region(
@@ -177,7 +196,8 @@ def test_mesh_call_region_matches_jax(flank_region, flank):
     assert [w for w, _ in got_left] == [w for w, _ in want_left]
     assert set(got_ll) == set(want_ll) and got_ll
     n_calls = 0
-    for w_idx, prep in state.live:
+    jax_windows = dict(jax_prep.state.live)
+    for w_idx, window in state.live:
         if w_idx not in want_inf:
             continue
         assert np.array_equal(got_ll[w_idx], want_ll[w_idx])
@@ -189,10 +209,11 @@ def test_mesh_call_region_matches_jax(flank_region, flank):
         np.testing.assert_allclose(list(g.ratios.values()),
                                    list(w.ratios.values()), rtol=0, atol=1e-3)
         assert abs(g.em_margin - w.em_margin) <= 1e-5
-        port_call = finish_window(prep, got_ll[w_idx], ref, config,
-                                  inference=g)
-        jax_call = finish_window(prep, want_ll[w_idx], ref, config,
-                                 inference=w)
+        port_call = finish_window(window, got_ll[w_idx], prep.ref,
+                                  prep.config, inference=g)
+        jax_call = jax_finish_window(jax_windows[w_idx], want_ll[w_idx],
+                                     jax_prep.ref, jax_prep.config,
+                                     inference=w)
         assert (port_call is None) == (jax_call is None)
         if port_call is not None:
             assert port_call.genotype_calls == jax_call.genotype_calls
@@ -200,8 +221,8 @@ def test_mesh_call_region_matches_jax(flank_region, flank):
                 jax_call.variant_posteriors.keys()
             n_calls += len(port_call.variant_posteriors)
     assert n_calls >= 3
-    for bam in bams:
-        bam.close()
+    prep.close()
+    jax_prep.close()
 
 
 @pytest.mark.parametrize("flank", [0, 1], ids=["default", "flank"])
@@ -217,17 +238,16 @@ def test_pair_scores_do_not_depend_on_the_mesh(flank_region, flank):
 def test_deferred_fetch_reads_each_device_once(flank_region, monkeypatch):
     """defer=True queues the work and fetches nothing; fetch() then reads
     each distinct device of the mesh once (one, on the CPU)."""
-    config = _config(flank_region, 0)
-    state, _ref, n_samples, bams = _prepared(config)
+    prep = _prepared(PORT_PKG, flank_region, 0)
     fetches = mock.Mock(wraps=port_mesh.fetch)
     monkeypatch.setattr(port_mesh, "fetch", fetches)
     fetch_fn, leftover = port_mesh.mesh_call_region(
-        state.live, n_samples, port_mesh.get_engine_mesh(8, CPU), defer=True)
+        prep.state.live, prep.n_samples, port_mesh.get_engine_mesh(8, CPU),
+        defer=True)
     assert fetches.call_count == 0 and not leftover
     ll_by, inf_by = fetch_fn()
     assert fetches.call_count == 1 and set(ll_by) == set(inf_by)
-    for bam in bams:
-        bam.close()
+    prep.close()
 
 
 def test_scatter_min_with_duplicates_is_order_free():
@@ -279,14 +299,14 @@ def test_mesh_stage_failure_raises(tmp_path, dataset, monkeypatch, stage):
         raise RuntimeError("mesh stage failed: CUDA error 700")
 
     if stage == "step":
-        monkeypatch.setattr(port_region, "mesh_call_region", fail)
+        monkeypatch.setattr(port_mesh, "mesh_call_region", fail)
     elif stage == "fetch":
         monkeypatch.setattr(port_mesh, "window_loglik_from_pair_scores", fail)
     else:
         # every window is left over, and aligning them fails
-        monkeypatch.setattr(port_region, "mesh_call_region",
+        monkeypatch.setattr(port_mesh, "mesh_call_region",
                             lambda live, *a, **k: (lambda: ({}, {}), live))
-        monkeypatch.setattr(port_score, "band_align_padded", fail)
+        monkeypatch.setattr(align_cuda, "band_align_padded", fail)
     monkeypatch.setattr(port_region, "dispatch_alignment_requests",
                         mock.Mock(side_effect=AssertionError("dispatch path")))
     out = str(tmp_path / "fail.vcf")

@@ -7,8 +7,8 @@ Twins of tests/test_device_service.py's hybrid-pool tests (:142, :295,
 must be byte-identical to the JAX package's single-process output.
 Where the JAX package survives a device worker's death, the port fails
 the run.  The pool's processes run in a fresh interpreter whose
-sitecustomize (torch_pool_util.SITECUSTOMIZE) logs torch imports, blocks
-jax and can slow the host workers down.
+sitecustomize (torch_pool_util.SITECUSTOMIZE) logs torch and JAX-package
+imports, blocks jax and can slow the host workers down.
 """
 
 import os
@@ -18,17 +18,17 @@ import pytest
 import torch
 
 from platypus_tpu.cli import main as jax_cli
-from platypus_tpu.config import PlatypusConfig
 from platypus_tpu.engine import region as jax_region
 from platypus_tpu.engine import score as jax_score
 from platypus_tpu.engine.runner import continue_calling as jax_continue
 from platypus_tpu_torch import cli as port_cli
+from platypus_tpu_torch.config import PlatypusConfig
 from platypus_tpu_torch.engine import region as port_region
 from platypus_tpu_torch.engine import runner as port_runner
 from platypus_tpu_torch.engine import score as port_score
 from platypus_tpu_torch.parallel import batch as port_batch
 from platypus_tpu_torch.utils.backend import DeviceError
-from torch_pool_util import (cli_args, data_lines, make_dataset,
+from torch_pool_util import (cli_args, data_lines, importers, make_dataset,
                              pool_summary, reference_lines, run_port_cli)
 
 # Small regions, so the pool has many to share out.
@@ -75,17 +75,18 @@ def test_hybrid_pool_matches_jax_and_device_worker_calls(tmp_path, dataset):
                          ids=["default", "flank"])
 def test_host_workers_import_neither_torch_nor_jax(tmp_path, dataset, extra):
     """Spawned host workers import no torch, and with jax blocked in every
-    process the pool's output still equals the JAX package's: the pool
-    pins its host workers to the CPU and keeps their flank path off the
-    Pallas dispatch."""
+    process the pool's output still equals the JAX package's: the host
+    workers run the port's own host path (native alignment, the scalar
+    flank path, float64 inference).  No process of the pool -- parent,
+    host worker or device worker -- imports the JAX package."""
     want = reference_lines(*dataset, [SHARDS, *extra])
     got, summary, imports, _log = _pool_run(
         tmp_path, dataset, ["--nCPU=2", "--tpuWorkers=1", *extra],
         PLATYPUS_TPU_DEVICE_SETTLE="0", PTT_TEST_HOST_DELAY="0.2")
     assert want and got == want
-    assert not [line for line in imports if line.startswith("jax ")], imports
-    torch_importers = {line.split()[1] for line in imports
-                       if line.startswith("torch ")}
+    assert not importers(imports, "jax"), imports
+    assert not importers(imports, "platypus_tpu"), imports
+    torch_importers = importers(imports, "torch")
     # The guard sees the parent's and the spawned device worker's imports.
     assert {"MainProcess", "ptpu-device-worker"} <= torch_importers, imports
     assert not [name for name in torch_importers if name.startswith("ptpu-host")]

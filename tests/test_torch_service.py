@@ -1,8 +1,8 @@
 """The torch port's device-owner inference service
 (platypus_tpu_torch/engine/device_service.py) on the CPU: its server on
-device="cpu" against the JAX package's, and the pool's host workers
-served through the JAX package's client, byte-identical to the JAX
-package's single-process output.
+device="cpu" against the JAX package's, each fed the payloads its own
+package builds, and the pool's host workers served through the port's
+client, byte-identical to the JAX package's single-process output.
 
 Twin of tests/test_device_service.py:53.  Where the JAX server stands
 down or its failures pass unseen, the port's run fails: a server that
@@ -17,15 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from platypus_tpu.config import PlatypusConfig, derive_runtime
 from platypus_tpu.engine import device_service as jax_service
-from platypus_tpu.engine.runner import open_bams
-from platypus_tpu.io.fasta import FastaFile
-from platypus_tpu.parallel.batch import build_inference_batches
+from platypus_tpu_torch.config import PlatypusConfig
 from platypus_tpu_torch.engine import device_service as port_service
-from platypus_tpu_torch.engine import region as port_region
-from torch_pool_util import (cli_args, data_lines, make_dataset,
+from torch_pool_util import (cli_args, data_lines, importers, make_dataset,
                              reference_lines, run_port_cli)
+from torch_twin_util import JAX_PKG, PORT_PKG, module, prepare
 
 SERVICE = ["--bufferSize=8000", "--nCPU=2", "--tpuWorkers=0",
            "--inferenceService=1"]
@@ -48,7 +45,8 @@ def _service_env(stats_path, **extra):
 def test_service_served_and_byte_identical(tmp_path, dataset):
     """Two host workers whose fused inference the port's server runs: the
     stats show windows served without error, the output equals the JAX
-    package's, and only the parent and the server imported torch."""
+    package's, only the parent and the server imported torch, and no
+    process imported the JAX package."""
     workdir, ref_path = dataset
     want = reference_lines(workdir, ref_path, ["--bufferSize=8000"])
     out = str(tmp_path / "svc.vcf")
@@ -61,9 +59,10 @@ def test_service_served_and_byte_identical(tmp_path, dataset):
     assert stats["backend"] == "cpu"
     assert stats["requests"] > 0 and stats["windows"] > 0
     assert stats["errors"] == 0
-    importers = {line.split()[1] for line in imports if line.startswith("torch ")}
-    assert importers == {"MainProcess", "ptpu-device-service"}, imports
-    assert not [line for line in imports if line.startswith("jax ")], imports
+    assert importers(imports, "torch") == {"MainProcess",
+                                           "ptpu-device-service"}, imports
+    assert not importers(imports, "jax"), imports
+    assert not importers(imports, "platypus_tpu"), imports
 
 
 def test_server_dispatch_error_fails_the_run(tmp_path, dataset):
@@ -96,27 +95,22 @@ def test_service_without_its_device_fails_the_run(tmp_path, dataset):
     assert json.loads(stats_path.read_text())["errors"] == 1
 
 
-def _region_payloads(workdir, ref_path):
+def _region_payloads(pkg, workdir, ref_path, device=None):
     """The service payloads (InferenceBatch.arrays() plus em_iters) of one
-    30 kb region, prepared and aligned by the port on the CPU."""
-    config = PlatypusConfig(bam_files=[f"{workdir}/reads.bam"],
-                            ref_file=ref_path, output="-")
-    bam_files, samples_by_bam, samples = open_bams(config)
-    ref_file = FastaFile(ref_path)
-    rt = derive_runtime(config, n_individuals=len(samples))
-    rt.rlen = config.rlen
+    30 kb region, prepared and aligned by package `pkg` (the port on
+    `device`) and bucketed by its own build_inference_batches."""
+    prep = prepare(pkg, ("chr20", 999, 29000), device,
+                   bam_files=[f"{workdir}/reads.bam"], ref_file=ref_path,
+                   output="-")
     try:
-        state = port_region.prepare_region_call(
-            "chr20", 999, 29000, bam_files, samples_by_bam, ref_file, config,
-            rt, torch.device("cpu"))
+        state = prep.state
         logliks = state.pending.finalize()
     finally:
-        for bam in bam_files:
-            bam.close()
-        ref_file.close()
+        prep.close()
     by_idx = {w_idx: ll for (w_idx, _p), ll in zip(state.live, logliks)}
     payloads = []
-    for b in build_inference_batches(state.live, by_idx, len(state.buffers)):
+    for b in module(pkg, "parallel.batch").build_inference_batches(
+            state.live, by_idx, len(state.buffers)):
         payload = b.arrays()
         payload["em_iters"] = 100
         payloads.append(payload)
@@ -125,14 +119,20 @@ def _region_payloads(workdir, ref_path):
 
 def test_server_dispatch_matches_jax(dataset):
     """_dispatch_infer/_finalize_infer on the CPU against the JAX
-    package's (its launch_fused_inference on XLA:CPU), on the payloads a
-    host worker ships for one region."""
-    payloads = _region_payloads(*dataset)
-    assert payloads
-    for payload in payloads:
+    package's (its launch_fused_inference on XLA:CPU), each on the
+    payloads its own package's host worker ships for one region; the
+    payloads themselves are equal."""
+    payloads = _region_payloads(PORT_PKG, *dataset, torch.device("cpu"))
+    jax_payloads = _region_payloads(JAX_PKG, *dataset)
+    assert payloads and len(payloads) == len(jax_payloads)
+    for payload, jax_payload in zip(payloads, jax_payloads):
+        assert payload.keys() == jax_payload.keys()
+        for key, value in payload.items():
+            assert np.array_equal(value, jax_payload[key]), key
         got = port_service._finalize_infer(
             port_service._dispatch_infer(payload, torch.device("cpu")))
-        want = jax_service._finalize_infer(jax_service._dispatch_infer(payload))
+        want = jax_service._finalize_infer(
+            jax_service._dispatch_infer(jax_payload))
         for name, g, w in zip(("em", "freq", "ratios", "margin"), got, want):
             assert g.dtype == np.float64 and g.shape == w.shape, name
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5, err_msg=name)

@@ -7,12 +7,15 @@ spawned processes start from a clean environment.  A `sitecustomize.py`
 on that interpreter's PYTHONPATH, loaded by every process of the pool,
 does what the tests need there:
 
-* it logs each first `import torch` with the name of the process that
-  made it, and blocks (and logs) every `import jax`, to PTT_TEST_IMPORT_LOG;
-* with PTT_TEST_HOST_DELAY=s, the JAX package's run_single_process -- the
-  host workers' -- waits until the device worker has claimed a region
-  (or for two minutes), then sleeps s seconds before each region it
-  claims, so the device worker's start-up cannot lose it every region;
+* it logs each first `import torch` and each first `import platypus_tpu`
+  (the JAX package) with the name of the process that made it, and blocks
+  (and logs) every `import jax`, to PTT_TEST_IMPORT_LOG; with
+  PTT_TEST_BLOCK_JAX_PACKAGE=1 it blocks `import platypus_tpu` too;
+* with PTT_TEST_HOST_DELAY=s, the port's run_single_process on the host
+  path (device None: the host workers') waits until the device worker has
+  claimed a region (or for two minutes), then sleeps s seconds before each
+  region it claims, so the device worker's start-up cannot lose it every
+  region;
 * with PTT_TEST_SERVICE_FAIL=1, the port's launch_fused_inference raises,
   so the device-owner service records a dispatch error.
 """
@@ -50,6 +53,10 @@ class _Guard(importlib.abc.MetaPathFinder):
         if name == "jax" or name.startswith("jax."):
             _note("jax")
             raise ImportError("jax is blocked in this process")
+        if name == "platypus_tpu":
+            _note("platypus_tpu")
+            if os.environ.get("PTT_TEST_BLOCK_JAX_PACKAGE"):
+                raise ImportError("platypus_tpu is blocked in this process")
         if name == "torch":
             _note("torch")
         return None
@@ -61,9 +68,9 @@ if _LOG:
 if os.environ.get("PTT_TEST_HOST_DELAY"):
     import time
 
-    import platypus_tpu.engine.runner as _host_runner
+    import platypus_tpu_torch.engine.runner as _runner
 
-    _host_run = _host_runner.run_single_process
+    _run = _runner.run_single_process
 
     def _slow(regions, delay, source):
         # Hold the first claim until the device worker has claimed a region
@@ -77,13 +84,16 @@ if os.environ.get("PTT_TEST_HOST_DELAY"):
             time.sleep(delay)
             yield region
 
-    def _slow_run(config, regions, *args, **kwargs):
+    def _slow_run(config, regions, output_path, device, *args, **kwargs):
+        if device is not None:
+            return _run(config, regions, output_path, device, *args, **kwargs)
         delay = float(os.environ["PTT_TEST_HOST_DELAY"])
         # A host worker passes its RegionClaimSource's mark_done.
         source = getattr(kwargs.get("on_region_done"), "__self__", None)
-        return _host_run(config, _slow(regions, delay, source), *args, **kwargs)
+        return _run(config, _slow(regions, delay, source), output_path,
+                    device, *args, **kwargs)
 
-    _host_runner.run_single_process = _slow_run
+    _runner.run_single_process = _slow_run
 
 if os.environ.get("PTT_TEST_SERVICE_FAIL"):
     from platypus_tpu_torch.parallel import batch as _batch
@@ -145,7 +155,8 @@ def reference_lines(workdir, ref_path, extra=(), region=REGION):
 
 def fresh_env(tmp_path, **env_set):
     """The environment of a fresh interpreter that loads the test
-    sitecustomize (jax blocked, torch imports logged), with env_set laid
+    sitecustomize (jax blocked, torch and platypus_tpu imports logged),
+    with env_set laid
     over this one's.  Returns (environment, import log path)."""
     site = tmp_path / "site"
     site.mkdir(exist_ok=True)
@@ -171,6 +182,12 @@ def run_port_cli(tmp_path, argv, device="cpu", **env_set):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     return proc, import_log.read_text().splitlines()
+
+
+def importers(imports, what):
+    """Names of the processes whose first import of `what` (torch, jax or
+    platypus_tpu) the import log holds."""
+    return {line.split()[1] for line in imports if line.split()[0] == what}
 
 
 def pool_summary(log_path):
