@@ -12,26 +12,38 @@ the JAX package.  Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel library of align_cuda.KERNELS -- K1, the
-   banded-alignment DP (csrc/band_align.cu), and K2, its traceback mode
-   (csrc/band_align_tb.cu) -- one nvcc each for sm_90a, and the port's
-   native host library (platypus_tpu_torch/native/src, g++), all started
-   together; prints the native library's path and each kernel's loop in
-   SASS (cuobjdump), beside the operations bound() counts;
+   banded-alignment DP (csrc/band_align.cu: its pair entry, which gathers
+   and pads its pairs from the deduplicated matrices, and its padded
+   entry), and K2, its traceback mode (csrc/band_align_tb.cu) -- one nvcc
+   each for sm_90a, and the port's native host library
+   (platypus_tpu_torch/native/src, g++), all started together; prints
+   the native library's path, ptxas's registers and spills, and for each
+   kernel function the longest straight-line run of its SASS
+   (cuobjdump: K1's unrolled block of 8 steps), beside the operations
+   bound() counts;
 3. kernel: each CUDA kernel bitwise against its plain torch version on
    the card -- every reference golden (K2: the flank goldens, whose
-   alignments the host backtrace must reproduce from K2's label words),
-   and main-path shapes (B = 16384, 2048 and 2000 pairs at read lengths
-   100 and 128, mixed lengths, 'N' bases) -- then each timed with CUDA
-   events at B=16384, L2=100 (on the device alone, its launches queued
-   behind a sleep kernel, and back to back as the host launches them)
-   against its plain version, with its bound:
-   the larger of the bytes it must move over the card's memory rate and
-   its int32 operations over the card's int32 rate (bound());
+   alignments the host backtrace must reproduce from K2's label words;
+   K1's pair entry: through identity indices), main-path shapes (B =
+   16384, 2048 and 2000 pairs at read lengths 100 and 128, mixed
+   lengths, 'N' bases) and, for the pair entry, overhanging segments and
+   B = 1, 127 and 2047 -- then timed with CUDA events at L2=100 (K1's
+   pair entry at B=16384 and 2048, its padded entry and K2 at 16384; on
+   the device alone, its launches queued behind a sleep kernel, and back
+   to back as the host launches them) against its plain version, with
+   its bound: the larger of the bytes it must move over the card's
+   memory rate and its int32 operations over the card's int32 rate
+   (bound());
 4. slice: `platypus_tpu_torch.cli.main(["callVariants", ...])` on cuda
    over a synthetic 1 Mb, 30x, 100 bp dataset (ten 100 kb regions; built
    by tests/test_torch_smoke_data.py in a child process, as is the HLA
    panel, since their writers belong to the JAX package), with
-   counters showing K1 and the fused inference ran; then one more
+   counters showing K1 and the fused inference ran, and the sizes of
+   its K1 launches.  The largest K1 chunk of its first region is kept
+   (the engine's matrices and index vectors): the pair entry bitwise on
+   it, then the old route (the chunk padded to its lane bucket,
+   gather/pad and the padded entry) and the new (the pair entry on
+   exactly its pairs) timed in turns on the device; then one more
    100 kb region with --maxHaplotypes=4 so the beam search aligns through
    K1 too;
 5. reference: the JAX package's CLI pinned to the CPU (native kernels,
@@ -320,22 +332,52 @@ def cuda_ms(fn, iters, hold=False):
     return start.elapsed_time(stop) / iters
 
 
-def time_kernel(label, name, fn, plain_fn, padded, outputs):
-    """Phase 3's times of kernel library `name` on `padded` (TIMED_B pairs
-    at TIMED_L2): the device's (launches held, cuda_ms), back to back as
-    the host launches them, and the plain version's; with its bound.
-    Prints them and returns the report fields."""
+def time_kernel(label, name, fn, plain_fn, read_len, n_steps, n_bytes):
+    """Phase 3's times of kernel library `name` through `fn` (pairs with
+    [B] read_len, n_steps = L2 + 8 steps, n_bytes to move): the device's
+    (launches held, cuda_ms), back to back as the host launches them, and
+    the plain version's; with its bound.  Prints them and returns the
+    report fields."""
+    B = len(read_len)
     ms = cuda_ms(fn, 20, hold=True)
     host_ms = cuda_ms(fn, 20)
     plain_ms = cuda_ms(plain_fn, 3)
-    bound_ms, bound_by = bound(name, padded, outputs)
-    print(f"{label}: B={TIMED_B} L2={TIMED_L2}: cuda {ms:.6f} ms on the device "
-          f"({TIMED_B / ms * 1e3:.1f} pairs/s), {host_ms:.6f} ms back to back "
+    bound_ms, bound_by = bound(name, read_len, n_steps, n_bytes)
+    print(f"{label}: B={B} L2={n_steps - 8}: cuda {ms:.6f} ms on the device "
+          f"({B / ms * 1e3:.1f} pairs/s), {host_ms:.6f} ms back to back "
           f"from the host; plain torch {plain_ms:.6f} ms "
-          f"({TIMED_B / plain_ms * 1e3:.1f} pairs/s); bound {bound_ms:.6f} ms "
+          f"({B / plain_ms * 1e3:.1f} pairs/s); bound {bound_ms:.6f} ms "
           f"({bound_by}), {bound_ms / ms:.1%} of it", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pair_bytes(mats, index):
+    """Bytes K1's pair entry must move on these inputs: each matrix byte a
+    pair touches, read once (pairs share rows), the four int32 index rows
+    and the int32 output.  A pair touches hap and gap-open columns ps ..
+    ps + read_len + 14 (clamped to the width) and read and quality
+    columns 0 .. read_len - 1."""
+    import numpy as np
+
+    H, L1B = mats[0].shape
+    A, L2 = mats[2].shape
+    ph, pr, ps, rl = (t.cpu().numpy().astype(np.int64) for t in index)
+    hap_touched = np.zeros((H, L1B + 1), np.int32)
+    lo = np.minimum(ps, L1B - 1)
+    hi = np.minimum(ps + rl + 15, L1B)
+    np.add.at(hap_touched, (ph, lo), 1)
+    np.add.at(hap_touched, (ph, hi), -1)
+    seq_touched = np.zeros((A, L2 + 1), np.int32)
+    np.add.at(seq_touched, (pr, 0), 1)
+    np.add.at(seq_touched, (pr, np.clip(rl, 0, L2)), -1)
+    n_hap = int((np.cumsum(hap_touched, axis=1)[:, :L1B] > 0).sum())
+    n_seq = int((np.cumsum(seq_touched, axis=1)[:, :L2] > 0).sum())
+    return 2 * n_hap + 2 * n_seq + 5 * 4 * len(rl)
 
 
 def card_rates():
@@ -351,26 +393,26 @@ def card_rates():
     return sms * INT32_PER_SM_CLOCK * float(mhz) * 1e6, HBM_BYTES_PER_S
 
 
-def needed_ops(name, inputs):
-    """The integer operations kernel library `name` needs on these padded
-    inputs.  K1 returns only the best exit cell, and row r of pair b exits
-    at step read_len_b + r, so the pair needs the steps of read positions
+def needed_ops(name, read_len, n_steps):
+    """The integer operations kernel library `name` needs on pairs of
+    these [B] read lengths, n_steps = L2 + 8 steps.  K1 (either entry)
+    returns only the best exit cell, and row r of pair b exits at step
+    read_len_b + r, so the pair needs the steps of read positions
     0..read_len_b on each row: DP_OPS_PER_STEP x (read_len_b + 1).  K2's
     label block covers every step, so each pair needs all of them."""
-    n_steps, B = inputs[2].shape
+    B = len(read_len)
     if name == "band_align":
-        steps = int((inputs[4].long() + 1).clamp(max=n_steps).sum())
+        steps = int((read_len.long() + 1).clamp(max=n_steps).sum())
         return DP_OPS_PER_STEP * steps + OPS_PER_PAIR[name] * B
     return (TB_OPS_PER_STEP * n_steps + OPS_PER_PAIR[name]) * B
 
 
-def bound(name, inputs, outputs):
-    """(bound_ms, bound_by) of kernel library `name` on these padded
-    inputs and its outputs: the larger of the bytes it must move (every
+def bound(name, read_len, n_steps, n_bytes):
+    """(bound_ms, bound_by) of kernel library `name` on pairs of these
+    read lengths: the larger of the bytes it must move (n_bytes: every
     input read once, every output written once) over the memory rate and
     the operations it needs (needed_ops) over the int32 rate."""
-    n_bytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    n_ops = needed_ops(name, inputs)
+    n_ops = needed_ops(name, read_len, n_steps)
     ops_rate, bytes_rate = card_rates()
     by_bytes, by_ops = n_bytes / bytes_rate * 1e3, n_ops / ops_rate * 1e3
     print(f"bound: {name}: {n_ops} integer operations ({by_ops:.6f} ms at "
@@ -380,9 +422,14 @@ def bound(name, inputs, outputs):
 
 
 def sass_loop(name):
-    """Print the opcodes of the longest loop in kernel library `name`'s
-    SASS (`cuobjdump -sass`), per step of the DP (4 loads each), beside
-    the DP_OPS_PER_STEP / TB_OPS_PER_STEP that bound() counts."""
+    """Print, for each kernel function in library `name`'s SASS
+    (`cuobjdump -sass`), the opcodes of the longest straight-line run (no
+    branch, no branch target inside) within a loop: K1's block of steps
+    without exit captures, or K2's step loop body.  Its steps are its
+    loads / 4 (read, quality, hap, gap-open a step), or, where the block's
+    loads are hoisted out of it (K1's pair entry), K1's unroll
+    (PTT_K1_UNROLL in its source).  Beside the non-memory instructions per
+    step, the DP_OPS_PER_STEP / TB_OPS_PER_STEP that bound() counts."""
     import collections
     import re
     import shutil
@@ -393,65 +440,245 @@ def sass_loop(name):
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     proc = subprocess.run([tool, "-sass", align_cuda.library_path(name)],
                           capture_output=True, text=True)
-    insts = [(int(m.group(1), 16), m.group(2)) for m in
-             re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", proc.stdout)]
-    loops = []
-    for addr, text in insts:
-        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
-        if m and int(m.group(1), 16) <= addr:
-            loops.append((int(m.group(1), 16), addr))
-    if proc.returncode != 0 or not loops:
+    sections = re.split(r"\n\s*Function : (\S+)", proc.stdout)
+    if proc.returncode != 0 or len(sections) < 3:
         print(f"sass: {name}: not measured (cuobjdump exited "
-              f"{proc.returncode}, {len(loops)} loops)", flush=True)
+              f"{proc.returncode})", flush=True)
         return
-    start, end = max(loops, key=lambda span: span[1] - span[0])
-    ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
-                              .split(".")[0]
-                              for addr, text in insts if start <= addr <= end)
-    steps = ops["LDG"] / 4 or 1
+    with open(align_cuda.source(name)) as fh:
+        unroll = re.search(r"#define PTT_K1_UNROLL (\d+)", fh.read())
     counted = DP_OPS_PER_STEP if name == "band_align" else TB_OPS_PER_STEP
-    alu = sum(n for op, n in ops.items()
-              if op not in ("LDG", "STG", "BRA", "NOP"))
-    print(f"sass: {name}: loop body {sum(ops.values())} instructions over "
-          f"{steps:g} steps, {alu / steps:.1f} non-memory per step against "
-          f"{counted} counted by bound(); "
-          + ", ".join(f"{op} {n}" for op, n in ops.most_common()), flush=True)
+    for fname, body in zip(sections[1::2], sections[2::2]):
+        insts = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body)]
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+               for _addr, text in insts]
+        jumps = [(addr, int(m.group(1), 16)) for addr, text in insts
+                 for m in [re.search(r"\b(?:BRA|BSSY|CALL)\b.*?(0x[0-9a-f]+)",
+                                     text)] if m]
+        targets = {target for _addr, target in jumps}
+        loops = [(target, addr) for addr, target in jumps if target <= addr]
+        runs, run = [], []
+        for (addr, _text), op in zip(insts, ops):
+            if addr in targets or op in ("BRA", "EXIT", "RET", "BSSY",
+                                         "BSYNC", "CALL"):
+                runs.append(run)
+                run = []
+            if op not in ("BRA", "EXIT", "RET", "BSSY", "BSYNC", "CALL"):
+                run.append((addr, op))
+        runs.append(run)
+        in_loop = [r for r in runs if r and any(lo <= r[0][0] <= hi
+                                                for lo, hi in loops)]
+        best = collections.Counter(op for _addr, op in
+                                   max(in_loop or runs, key=len))
+        steps = best["LDG"] / 4 or (int(unroll.group(1)) if unroll else 1)
+        alu = sum(n for op, n in best.items()
+                  if op not in ("LDG", "LDS", "STG", "STS", "NOP"))
+        short = re.search(r"(band_align\w*?kernel)", fname)
+        print(f"sass: {name}: {short.group(1) if short else fname}: loop's "
+              f"longest straight-line run {sum(best.values())} instructions "
+              f"over {steps:g} steps, {alu / steps:.1f} non-memory per step "
+              f"against {counted} counted by bound(); "
+              + ", ".join(f"{op} {n}" for op, n in best.most_common()),
+              flush=True)
+
+
+def pair_inputs(inputs, device, overhang_seed=None, width=None):
+    """The padded-style numpy rows of random_pairs / the goldens as K1's
+    pair entry's inputs on `device`: one matrix row per pair (identity
+    indices), or with `overhang_seed` haps shared by several pairs and a
+    third of the segments running past the matrix width.  `width` widens
+    the hap and gap-open matrices with 'N' / 0 columns (the engine's
+    widths are multiples of 4; the goldens' are not)."""
+    import numpy as np
+    import torch
+
+    hap, go, read, qual, rl = inputs
+    B = len(rl)
+    if width is not None:
+        hap = np.pad(hap, ((0, 0), (0, width - hap.shape[1])),
+                     constant_values=ord("N"))
+        go = np.pad(go, ((0, 0), (0, width - go.shape[1])))
+    rows = np.arange(B, dtype=np.int32)
+    seg = np.zeros(B, np.int32)
+    if overhang_seed is not None:
+        rng = np.random.default_rng(overhang_seed)
+        rows = rng.integers(0, B, B).astype(np.int32)
+        seg = rng.integers(0, 8, B).astype(np.int32)
+        seg[: B // 3] = hap.shape[1] - rng.integers(1, 40, B // 3)
+    mats = [hap.astype(np.uint8), go.astype(np.uint8), read.astype(np.uint8),
+            qual.astype(np.uint8)]
+    idx = [rows, np.arange(B, dtype=np.int32), seg, rl.astype(np.int32)]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (*mats, *idx)]
+
+
+def check_equal(what, got, want):
+    """max |got - want| (0 when empty); raises unless it is 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err:
+        raise AssertionError(f"{what}: kernel != plain version (B="
+                             f"{got.numel()}): max |diff| {err}")
+    return err
 
 
 def check_kernel(device):
-    """Phase 3: bitwise parity on goldens and main-path shapes, then the
-    kernel's and the plain version's times.  Returns the report fields."""
-    import torch
-
+    """Phase 3 for K1: the padded entry bitwise against the plain DP on
+    every golden and the main-path shapes; the pair entry bitwise against
+    its plain version (gather/pad + the plain DP) on the goldens through
+    identity indices, the main-path shapes, overhanging segments and B =
+    1, 127 and 2047, all with mixed read lengths and 'N' bases; then the
+    padded entry timed at B=16384 and the pair entry at B=16384 and 2048,
+    L2=100.  Returns the pair entry's report fields at B=16384."""
     from platypus_tpu_torch.ops import align_cuda, align_torch
 
     max_err = 0
     n_pairs = 0
-    cases = [(ge, npr, inputs) for ge, npr, inputs, _ in golden_groups()]
-    for seed, (B, L2) in enumerate(MAIN_SHAPES):
-        cases.append((3, 2, random_pairs(seed, B, L2)))
-    for k, (ge, npr, inputs) in enumerate(cases):
+    goldens = [(ge, npr, inputs) for ge, npr, inputs, _ in golden_groups()]
+    shapes = [(3, 2, random_pairs(seed, B, L2))
+              for seed, (B, L2) in enumerate(MAIN_SHAPES)]
+    for k, (ge, npr, inputs) in enumerate(goldens + shapes):
         padded = align_torch.pad_alignment_inputs(*inputs, device=device)
         got = align_cuda.band_align_padded(*padded, gapextend=ge, nucprior=npr)
         want = align_torch.band_align_padded_reference(*padded, gapextend=ge,
                                                        nucprior=npr)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        max_err = max(max_err, err)
+        max_err = max(max_err, check_equal(f"padded entry, case {k}", got, want))
         n_pairs += got.numel()
-        if err:
-            raise AssertionError(f"kernel != plain DP on case {k} "
-                                 f"(B={got.numel()}): max |diff| {err}")
-    print(f"kernel: bitwise equal to the plain DP on {len(cases)} batches, "
-          f"{n_pairs} pairs (goldens + main-path shapes)", flush=True)
+    print(f"kernel: padded entry bitwise equal to the plain DP on "
+          f"{len(goldens) + len(shapes)} batches, {n_pairs} pairs (goldens + "
+          f"main-path shapes)", flush=True)
+
+    pair_cases = [(ge, npr, pair_inputs(inputs, device))
+                  for ge, npr, inputs in goldens]
+    pair_cases += [(ge, npr, pair_inputs(inputs, device,
+                                         width=-(-(L2 + 15) // 32) * 32))
+                   for (ge, npr, inputs), (_B, L2) in zip(shapes, MAIN_SHAPES)]
+    pair_cases += [(3, 2, pair_inputs(random_pairs(40, 2000, 128), device,
+                                      overhang_seed=40, width=width))
+                   for width in (None, 160)]
+    pair_cases += [(3, 2, pair_inputs(random_pairs(50 + B, B, 100), device,
+                                      width=128)) for B in (1, 127, 2047)]
+    n_pairs = 0
+    for k, (ge, npr, args) in enumerate(pair_cases):
+        got = align_cuda.band_align_pairs(*args, gapextend=ge, nucprior=npr)
+        want = align_torch.band_align_pairs_reference(*args, gapextend=ge,
+                                                      nucprior=npr)
+        max_err = max(max_err, check_equal(f"pair entry, case {k}", got, want))
+        n_pairs += got.numel()
+    print(f"kernel: pair entry bitwise equal to gather/pad + the plain DP on "
+          f"{len(pair_cases)} batches, {n_pairs} pairs (goldens through "
+          f"identity indices, main-path shapes, overhanging segments, B = 1, "
+          f"127, 2047)", flush=True)
 
     padded = align_torch.pad_alignment_inputs(*random_pairs(99, TIMED_B, TIMED_L2),
                                               device=device)
-    return dict(max_abs_err=max_err, **time_kernel(
-        "kernel", "band_align",
-        lambda: align_cuda.band_align_padded(*padded),
-        lambda: align_torch.band_align_padded_reference(*padded), padded,
-        [align_cuda.band_align_padded(*padded)]))
+    time_kernel("kernel (padded entry)", "band_align",
+                lambda: align_cuda.band_align_padded(*padded),
+                lambda: align_torch.band_align_padded_reference(*padded),
+                padded[4], TIMED_L2 + 8, tensor_bytes(padded) + 4 * TIMED_B)
+    reports = {}
+    for B in (TIMED_B, 2048):
+        args = pair_inputs(random_pairs(99, B, TIMED_L2), device, width=128)
+        reports[B] = time_kernel(
+            "kernel (pair entry)", "band_align",
+            lambda args=args: align_cuda.band_align_pairs(*args),
+            lambda args=args: align_torch.band_align_pairs_reference(*args),
+            args[7], TIMED_L2 + 8, pair_bytes(args[:4], args[4:]))
+    return dict(max_abs_err=max_err, **reports[TIMED_B])
+
+
+class ChunkRecorder:
+    """While entered: the size of every call of K1's pair entry, and the
+    inputs of the largest call of the first region dispatch that calls it
+    (the engine's own matrices and index vectors, kept by reference).
+    Wraps align_cuda.band_align_pairs and the region pipeline's
+    dispatch_alignment_requests; launches are counted by the wrapper
+    inside, as always."""
+
+    def __init__(self):
+        from platypus_tpu_torch.engine import region
+        from platypus_tpu_torch.ops import align_cuda
+
+        self.sizes, self.first = [], None
+        self._dispatches, self._first_dispatch = 0, None
+        self._region, self._align = region, align_cuda
+        self._dispatch = region.dispatch_alignment_requests
+        self._pairs = align_cuda.band_align_pairs
+
+    def __enter__(self):
+        def dispatch(*args, **kwargs):
+            self._dispatches += 1
+            return self._dispatch(*args, **kwargs)
+
+        def pairs(*args, **kwargs):
+            self.sizes.append(len(args[7]))
+            if self._first_dispatch is None:
+                self._first_dispatch = self._dispatches
+            if self._dispatches == self._first_dispatch and (
+                    self.first is None or len(args[7]) > len(self.first[7])):
+                self.first = args
+            return self._pairs(*args, **kwargs)
+
+        self._region.dispatch_alignment_requests = dispatch
+        self._align.band_align_pairs = pairs
+        return self
+
+    def __exit__(self, *exc):
+        self._region.dispatch_alignment_requests = self._dispatch
+        self._align.band_align_pairs = self._pairs
+
+
+def check_main_chunk(args, smi):
+    """The captured main-path chunk: the pair entry bitwise against its
+    plain version, then the old route (the chunk padded to its lane
+    bucket with pad pairs, gather/pad, the padded entry) and the new one
+    (the pair entry on exactly its pairs) timed in turns (old, new, new,
+    old) on the device alone, with the pair entry's bound."""
+    import torch
+
+    from platypus_tpu_torch.engine.score import LANE_BUCKETS
+    from platypus_tpu_torch.ops import align_cuda, align_torch
+
+    mats, idx = args[:4], args[4:]
+    B, L2 = len(idx[3]), mats[2].shape[1]
+    new = align_cuda.band_align_pairs(*args)
+    check_equal("main-path chunk", new,
+                align_torch.band_align_pairs_reference(*args))
+    lane = next((b for b in LANE_BUCKETS if B <= b), LANE_BUCKETS[-1])
+    pad = [torch.zeros(lane - B, dtype=torch.int32, device=t.device)
+           for t in idx]
+    pad[3] += min(8, L2)
+    old_idx = [torch.cat([t, p]) for t, p in zip(idx, pad)]
+
+    def old_route():
+        return align_cuda.band_align_padded(*align_torch.gather_pad(*mats,
+                                                                    *old_idx))
+
+    check_equal("main-path chunk, old route", old_route()[:B], new)
+
+    def new_route():
+        return align_cuda.band_align_pairs(*args)
+
+    times = [(name, cuda_ms(fn, 20, hold=True)) for name, fn in (
+        ("old", old_route), ("new", new_route), ("new", new_route),
+        ("old", old_route))]
+    host = {name: cuda_ms(fn, 20) for name, fn in (("old", old_route),
+                                                    ("new", new_route))}
+    bound_ms, bound_by = bound("band_align", idx[3], L2 + 8,
+                               pair_bytes(mats, idx))
+    new_ms = min(t for name, t in times if name == "new")
+    print(f"main-path chunk on {smi}: {B} pairs (L2={L2}, hap matrix "
+          f"{tuple(mats[0].shape)}, read matrix {tuple(mats[2].shape)}), "
+          f"pair entry bitwise equal to its plain version and to the old "
+          f"route; device ms in turns "
+          + ", ".join(f"{name} {t:.6f}" for name, t in times)
+          + f"; back to back from the host: old {host['old']:.6f}, new "
+          f"{host['new']:.6f} ms; old route = gather/pad + padded entry on "
+          f"{lane} lanes; pair entry bound {bound_ms:.6f} ms ({bound_by}), "
+          f"{bound_ms / new_ms:.1%} of it", flush=True)
 
 
 def check_tb_kernel(device):
@@ -492,11 +719,12 @@ def check_tb_kernel(device):
 
     padded = align_torch.pad_alignment_inputs(*random_pairs(99, TIMED_B, TIMED_L2),
                                               device=device)
+    outputs = align_cuda.band_align_traceback_padded(*padded)
     return dict(max_abs_err=max_err, **time_kernel(
         "kernel K2", "band_align_tb",
         lambda: align_cuda.band_align_traceback_padded(*padded),
         lambda: align_torch.band_align_traceback_padded_reference(*padded),
-        padded, align_cuda.band_align_traceback_padded(*padded)))
+        padded[4], TIMED_L2 + 8, tensor_bytes((*padded, *outputs))))
 
 
 def build_dataset(kind, workdir, *args):
@@ -1082,7 +1310,8 @@ def main() -> int:
           f"({time.perf_counter() - t0:.3f} s to build or load)", flush=True)
     region = f"chr20:1000-{info['length'] + 1000}"
     port_out = os.path.join(info["workdir"], "port.vcf")
-    wall, counts = run_port(cli_args(info, region, port_out))
+    with ChunkRecorder() as recorder:
+        wall, counts = run_port(cli_args(info, region, port_out))
     errors.check("slice")
     launches = {"band_align": counts["band_align"]}
     if counts["band_align"] <= 0 or counts["batches"] <= 0:
@@ -1093,6 +1322,11 @@ def main() -> int:
           f"{info['n_reads'] / wall:.1f} reads/s, {counts['band_align']} "
           f"kernel launches, {counts['batches']} fused-inference batches",
           flush=True)
+    print(f"slice: K1 launch sizes (pairs) {recorder.sizes}", flush=True)
+    if recorder.first is None:
+        raise AssertionError("slice: no call of K1's pair entry recorded")
+    check_main_chunk(recorder.first, smi)
+    errors.check("main-path chunk")
 
     cli_out = os.path.join(info["workdir"], "port_cli.vcf")
     cli_wall = run_port_cli(cli_args(info, region, cli_out), cli_out)

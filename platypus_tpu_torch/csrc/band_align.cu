@@ -1,44 +1,456 @@
-// Banded pair-alignment DP for NVIDIA Hopper (sm_90a).
+// Banded pair-alignment DP for NVIDIA Hopper (sm_90a): K1.
 //
 // Replaces platypus_tpu/ops/align_pallas.py::_band_align_kernel (called
-// through band_align_padded_pallas).  Same contract as the plain torch
-// version platypus_tpu_torch/ops/align_torch.py::band_align_padded_reference
-// and the scalar spec platypus_tpu_torch/ops/align_core.py::band_align_single:
-// quality-aware banded min-plus alignment in quarter-phred int32, an 8-cell
-// antidiagonal wavefront, two phases per read base, M/I/D states, free
-// haplotype end gaps, position-specific gap-open.  Returns
-// (min exit cell + 0x8000) >> 2 per pair, bit-identical to the reference.
+// through band_align_padded_pallas) and, in the pair entry, the gather/pad
+// before it (platypus_tpu/ops/align_jax.py::_gather_pad_device).  Same
+// contract as the plain torch versions in
+// platypus_tpu_torch/ops/align_torch.py (band_align_padded_reference,
+// band_align_pairs_reference) and the scalar spec
+// platypus_tpu_torch/ops/align_core.py::band_align_single: quality-aware
+// banded min-plus alignment in quarter-phred int32, an 8-cell antidiagonal
+// wavefront, two phases per read base, M/I/D states, free haplotype end
+// gaps, position-specific gap-open.  Returns (min exit cell + 0x8000) >> 2
+// per pair, bit-identical to the plain versions for 4*quality values in
+// [0, POS_INF] (every quality byte's).
 //
-// What bounds it: int32 ALU issue.  The DP needs 157 integer instructions
-// per (pair, step) over the 8 wavefront rows (chip_smoke.py
-// DP_OPS_PER_STEP) and reads four int32 words, so device-memory bytes are
-// negligible.  The result needs only the steps up to read_len + 7; this
-// loop runs all n_steps, and the init-row and exit-row compares on every
-// step.
+// Two entries feed one DP body (dp_run):
+// * ptt_band_align_pairs, the main path: the deduplicated uint8 matrices
+//   hap / gap-open [H, L1B] and read / quality [A, L2] with int32 pair
+//   rows (hap, read, segment start, read length) [B].  Each thread reads
+//   its own pair's bytes from the matrices and applies gather/pad's
+//   sentinels itself ('N' hap from column read_len + 15 on, columns
+//   clamped to L1B - 1, gap-open past the read held at column
+//   read_len + 14, read '0' and quality 64 from read_len on).
+// * ptt_band_align, the padded entry: gather/pad's int32 column tensors
+//   [L2+16, B] hap / 4*gap-open and [L2+8, B] read / 4*quality, read
+//   directly (coalesced) from device memory.
 //
-// Design: one thread per pair, blocks of 128 threads, the ragged edge
-// masked with b < B (no lane padding).  All wavefront state lives in
-// fully unrolled 8-entry register arrays: the TPU kernel's sublane rolls
-// (_shift_up/_shift_down) become register renames, and the init row and
-// exit-row extraction are unrolled compare-selects instead of a dynamic
-// register index, which would spill to local memory.  Inputs stay
-// column-major [L, B], so each step's four loads are coalesced across a
-// warp.  wgmma and TMA do not apply: there is no matrix product and no
-// tile to stage.  Simple and right first; speed is later work.
+// What bounds it: int32 issue.  The DP needs 157 integer instructions per
+// (pair, step) over the 8 wavefront rows (chip_smoke.py DP_OPS_PER_STEP);
+// a pair reads under 450 bytes.  Hopper issues the DPX min forms (VIMNMX,
+// VIMNMX3, VIADDMNMX) at the int32 rate, one warp instruction per two
+// clocks per SM sub-partition (chip_probe_k1.py).  What the design does:
+// * The wavefront's sliding windows (read and quality shifting up, hap
+//   and gap-open shifting down) are circular 8-entry register buffers
+//   indexed by the step modulo 8, a compile-time constant in the
+//   unrolled body, so a shift is a register rename.  The main loop runs
+//   blocks of kUnroll = 4 steps and rotates the buffers once per block
+//   (12 moves each, on the FMA pipe): 8 steps a block would need no
+//   rotation, but that body (~23 KB of SASS) measured slower, past what
+//   the instruction cache holds.
+// * Steps 0-7, which hold the init row (m = -0x8000 where row == step),
+//   are peeled into one block of 8.
+// * The blocks' shape is warp-uniform: plain blocks while no lane of the
+//   warp can reach an exit cell, then blocks with the exit captures up to
+//   the warp's longest read_len + 8, in which a lane past its own end
+//   idles.  Per-lane choices made a warp of mixed read lengths run both
+//   kinds of block one after the other.
+// * The substitution cost is one LOP3, one unsigned min and one IMAD, and
+//   the insert terms fold +nucprior into their adds (IADD3).
+// * Each pair entry thread loads the next block's four steps as words
+//   (read, quality; hap and gap-open by funnel shift of two aligned words)
+//   while the current block computes, so their latency hides behind it.
+//   Staging the pair's bytes in shared memory first (PTT_K1_STAGED=1, the
+//   first design) measured slower: at one warp per SM sub-partition the
+//   staging loads' latency is not hidden (chip_probe_k1.py).
+// * Block size: the largest of 128, 64 and 32 threads (one pair each)
+//   that still gives at least one block per SM, so a 2048-pair chunk
+//   spreads over 64 SMs instead of 16.
+// The TPU kernel's 128-lane blocks and its (8, 128) tiles do not carry
+// over; wgmma and TMA do not apply (no matrix product, no regular tile).
+// int32 throughout: narrower forms would overflow POS_INF + gap sums.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Compile-time variants, for chip_probe_k1.py's measurements only.
+#ifndef PTT_K1_UNROLL
+#define PTT_K1_UNROLL 4
+#endif
+#ifndef PTT_K1_STAGED
+#define PTT_K1_STAGED 0
+#endif
 
 namespace {
 
 constexpr int kLanes = 8;          // align_core.N_LANES
 constexpr int kPosInf = 0x7800;    // align_core.POS_INF
 constexpr int kNChar = 'N';
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 128;
+constexpr int kMinThreads = 32;
+constexpr int kUnroll = PTT_K1_UNROLL;  // steps per block of the main loop
+static_assert(kUnroll % 4 == 0 && kLanes % kUnroll == 0,
+              "a block is whole words of four steps within the 8 init steps");
 
-__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+// One pair's wavefront.  At the start of a block at step t0, rb / qb hold
+// the read base and 4*quality of step t0 - 1 - j in slot 7 - j (row r of
+// step t0 + K reads slot (K - r) & 7), and hb / gb / nb the hap base,
+// 4*gap-open and 'N' mask (0 for 'N', else all ones) of padded hap column
+// t0 + j in slot j (row r reads slot (K + r) & 7 in the even phase of step
+// t0 + K, (K + 1 + r) & 7 in the odd).
+struct State {
+  int m1[kLanes], i1[kLanes], d1[kLanes], m2[kLanes], i2[kLanes], d2[kLanes];
+  int rb[kLanes], qb[kLanes], hb[kLanes], gb[kLanes], nb[kLanes];
+  int minsc;
+};
 
-__global__ void __launch_bounds__(kThreads)
+// The inputs of N consecutive steps: read, 4*quality, and the hap and
+// 4*gap-open column each step brings in (column step + 8).
+template <int N>
+struct Steps {
+  int rd[N], q4[N], hp[N], g4[N];
+};
+
+// The substitution cost min(read == hap ? 0 : q4, hap 'N' ? 0 : POS_INF),
+// which is q4 * (read != hap && hap != 'N') for q4 in [0, POS_INF].
+__device__ __forceinline__ int sub(int rd, int hp, int q4, int nmask) {
+  return q4 * (int)min((unsigned)((rd ^ hp) & nmask), 1u);
+}
+
+// Step t = t0 + K of the DP, K compile-time.  INIT: the block of steps
+// 0-7 (t == K).  CAPTURE: the block may hold exit cells (exit_row =
+// t - read_len in 0..7).
+template <int K, bool INIT, bool CAPTURE>
+__device__ __forceinline__ void dp_step(State& s, int rd, int q4, int hp,
+                                        int g4, int exit_row, int ge,
+                                        int npr) {
+  // ---- even phase: step t's read enters in slot K --------------------
+  s.rb[K] = rd;
+  s.qb[K] = q4;
+  if (INIT) {
+    s.m1[K] = -0x8000;
+    s.m2[K] = -0x8000;
+  }
+#pragma unroll
+  for (int r = 0; r < kLanes; ++r) {
+    s.m1[r] = min(s.m1[r], min(s.i1[r], s.d1[r]));
+    if (CAPTURE && r == exit_row) s.minsc = min(s.minsc, s.m1[r]);
+  }
+  int d1n[kLanes - 1];
+#pragma unroll
+  for (int r = 0; r < kLanes; ++r) {
+    const int c = (K + r) & 7;
+    const int w = (K - r) & 7;
+    s.m1[r] += sub(s.rb[w], s.hb[c], s.qb[w], s.nb[c]);
+    if (r < kLanes - 1)
+      d1n[r] = min(s.d2[r] + ge, min(s.m2[r], s.i2[r]) + s.gb[(K + r + 1) & 7]);
+    s.i1[r] = min(s.i2[r] + (ge + npr), s.m2[r] + s.gb[c] + npr);
+  }
+  s.d1[0] = kPosInf;
+#pragma unroll
+  for (int r = 1; r < kLanes; ++r) s.d1[r] = d1n[r - 1];
+
+  // ---- odd phase: hap column t + 8 enters in slot K ------------------
+  s.hb[K] = hp;
+  s.gb[K] = g4;
+  s.nb[K] = hp == kNChar ? 0 : -1;
+#pragma unroll
+  for (int r = 0; r < kLanes; ++r) {
+    s.m2[r] = min(s.m2[r], min(s.i2[r], s.d2[r]));
+    if (CAPTURE && r == exit_row) s.minsc = min(s.minsc, s.m2[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < kLanes; ++r) {
+    const int c = (K + 1 + r) & 7;
+    const int w = (K - r) & 7;
+    s.m2[r] += sub(s.rb[w], s.hb[c], s.qb[w], s.nb[c]);
+    s.d2[r] = min(s.d1[r] + ge, min(s.m1[r], s.i1[r]) + s.gb[c]);
+  }
+  // i2 reads rows r+1 of i1 / m1; row 7 is POS_INF.
+#pragma unroll
+  for (int r = 0; r < kLanes - 1; ++r)
+    s.i2[r] = min(s.i1[r + 1] + (ge + npr),
+                  s.m1[r + 1] + s.gb[(K + 1 + r) & 7] + npr);
+  s.i2[kLanes - 1] = kPosInf;
+}
+
+// Rotate an 8-slot buffer by N, so that a block of N < 8 steps leaves it
+// as the next block's K = 0 expects (a block of 8 leaves it in place).
+template <int N>
+__device__ __forceinline__ void rotate(int* b) {
+  int t[kLanes];
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) t[j] = b[(j + N) & 7];
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) b[j] = t[j];
+}
+
+// Steps t0 .. t0+N-1; a CAPTURE block stops at `stop` (the pair's last
+// needed step + 1).
+template <int N, bool INIT, bool CAPTURE, int K = 0>
+__device__ __forceinline__ void dp_block(State& s, const Steps<N>& in, int t0,
+                                         int stop, int read_len, int ge,
+                                         int npr) {
+  if constexpr (K < N) {
+    if (CAPTURE && t0 + K >= stop) return;
+    dp_step<K, INIT, CAPTURE>(s, in.rd[K], in.q4[K], in.hp[K], in.g4[K],
+                              t0 + K - read_len, ge, npr);
+    dp_block<N, INIT, CAPTURE, K + 1>(s, in, t0, stop, read_len, ge, npr);
+  } else if constexpr (N % kLanes != 0) {
+    rotate<N>(s.rb);
+    rotate<N>(s.qb);
+    rotate<N>(s.hb);
+    rotate<N>(s.gb);
+    rotate<N>(s.nb);
+  }
+}
+
+// The DP body of both entries.  `ld` gives the padded hap / gap-open
+// columns 0-7 (head) and each block's Steps (fetch); prepare(t0) lets it
+// stage what step t0 needs.  `end` = min(read_len + 8, n_steps): the exit
+// cells of row r lie at step read_len + r, so no later step can change
+// the result.  `lo` (the warp's least end - 8: its shortest read, at most
+// L2) and `hi` (its largest end) are warp-uniform, so every lane takes
+// the same blocks.
+template <class Loader>
+__device__ __forceinline__ int dp_run(Loader& ld, int read_len, int end,
+                                      int lo, int hi, int ge, int npr) {
+  State s;
+#pragma unroll
+  for (int r = 0; r < kLanes; ++r) {
+    s.m1[r] = s.i1[r] = s.d1[r] = s.m2[r] = s.i2[r] = s.d2[r] = kPosInf;
+    s.rb[r] = kPosInf;
+    s.qb[r] = 64 * 4;
+  }
+  s.minsc = kPosInf;
+  ld.head(s.hb, s.gb);
+#pragma unroll
+  for (int r = 0; r < kLanes; ++r) s.nb[r] = s.hb[r] == kNChar ? 0 : -1;
+  {
+    Steps<kLanes> in;
+    if (lo >= kLanes) {
+      ld.template fetch<false>(0, in);
+      dp_block<kLanes, true, false>(s, in, 0, end, read_len, ge, npr);
+    } else {
+      ld.template fetch<true>(0, in);
+      dp_block<kLanes, true, true>(s, in, 0, end, read_len, ge, npr);
+    }
+  }
+  Steps<kUnroll> in;
+  for (int t0 = kLanes; t0 < hi; t0 += kUnroll) {
+    ld.prepare(t0);
+    if (t0 + kUnroll <= lo) {
+      ld.template fetch<false>(t0, in);
+      dp_block<kUnroll, false, false>(s, in, t0, end, read_len, ge, npr);
+    } else {
+      ld.template fetch<true>(t0, in);
+      dp_block<kUnroll, false, true>(s, in, t0, end, read_len, ge, npr);
+    }
+  }
+  return (s.minsc + 0x8000) >> 2;  // arithmetic shift, as in the TPU kernel
+}
+
+// ---- the padded entry's loader: int32 columns [L, B] -----------------
+struct PaddedLoader {
+  const int32_t* __restrict__ hap;
+  const int32_t* __restrict__ go4;
+  const int32_t* __restrict__ read;
+  const int32_t* __restrict__ qual4;
+  size_t stride;  // B
+  int b, last;    // last = n_steps - 1
+
+  __device__ __forceinline__ void prepare(int) {}
+
+  __device__ __forceinline__ void head(int* hb, int* gb) const {
+#pragma unroll
+    for (int r = 0; r < kLanes; ++r) {
+      hb[r] = __ldg(hap + r * stride + b);
+      gb[r] = __ldg(go4 + r * stride + b);
+    }
+  }
+
+  // CLAMP: a block past the lane's exit may run past n_steps; its extra
+  // steps are never used, so they reload the last step.
+  template <bool CLAMP, int N>
+  __device__ __forceinline__ void fetch(int t0, Steps<N>& in) const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int t = CLAMP ? min(t0 + k, last) : t0 + k;
+      const size_t off = (size_t)t * stride + b;
+      in.rd[k] = __ldg(read + off);
+      in.q4[k] = __ldg(qual4 + off);
+      in.hp[k] = __ldg(hap + off + kLanes * stride);
+      in.g4[k] = __ldg(go4 + off + kLanes * stride);
+    }
+  }
+};
+
+// ---- the pair entry: one pair's rows in the matrices ------------------
+__device__ __forceinline__ uint32_t ldg32(const uint8_t* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+struct PairRows {
+  const uint8_t* __restrict__ hrow;  // the pair's hap row, gap-open row,
+  const uint8_t* __restrict__ grow;  // read row and quality row
+  const uint8_t* __restrict__ srow;
+  const uint8_t* __restrict__ qrow;
+  int ps, L1B;      // segment start, hap matrix width
+  int valid;        // read bytes before the '0' / 64 sentinels
+  int len1;         // hap columns before the 'N' sentinel
+  bool rq_aligned;  // read / quality rows start on 4-byte boundaries
+  bool hg_aligned;  // hap / gap-open rows start on 4-byte boundaries
+
+  // Four read (or quality) bytes from step s0, `pad` past `valid`.
+  __device__ __forceinline__ uint32_t read_word(const uint8_t* row_ptr, int s0,
+                                                uint32_t pad) const {
+    if (rq_aligned && s0 + 4 <= valid) return ldg32(row_ptr + s0);
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t byte = s0 + k < valid ? __ldg(row_ptr + s0 + k)
+                                           : (pad >> (8 * k)) & 0xff;
+      w |= byte << (8 * k);
+    }
+    return w;
+  }
+
+  // Padded hap / gap-open columns c0 .. c0+3, as gather/pad makes them:
+  // straight from the rows (a funnel shift of two aligned words) where no
+  // sentinel or clamp applies, else byte by byte.
+  __device__ __forceinline__ void hap_words(int c0, uint32_t& hw,
+                                            uint32_t& gw) const {
+    const int a = ps + c0;
+    if (hg_aligned && a >= 0 && c0 + 4 <= len1 && a + 4 <= L1B) {
+      const int lo = a & ~3, hi = min(lo + 4, L1B - 4), sh = 8 * (a & 3);
+      hw = __funnelshift_r(ldg32(hrow + lo), ldg32(hrow + hi), sh);
+      gw = __funnelshift_r(ldg32(grow + lo), ldg32(grow + hi), sh);
+      return;
+    }
+    const int lastc = max(len1 - 1, 0);
+    hw = gw = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = c0 + k;
+      const int col = min(ps + min(c, lastc), L1B - 1);
+      const uint32_t h = c < len1 ? __ldg(hrow + col) : kNChar;
+      hw |= h << (8 * k);
+      gw |= uint32_t(__ldg(grow + col)) << (8 * k);
+    }
+  }
+
+  // The words of steps s0 .. s0+3: read, quality, and hap / gap-open
+  // columns s0+8 .. s0+11.
+  __device__ __forceinline__ void load(int s0, uint32_t& r, uint32_t& q,
+                                       uint32_t& h, uint32_t& g) const {
+    r = read_word(srow, s0, 0x30303030u);  // '0'
+    q = read_word(qrow, s0, 0x40404040u);  // 64
+    hap_words(s0 + kLanes, h, g);
+  }
+
+  __device__ __forceinline__ void head(int* hb, int* gb) const {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      uint32_t h, g;
+      hap_words(4 * w, h, g);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        hb[4 * w + k] = (h >> (8 * k)) & 0xff;
+        gb[4 * w + k] = ((g >> (8 * k)) & 0xff) << 2;
+      }
+    }
+  }
+};
+
+// Byte k of each word of one four-step group into a block's Steps.
+template <int N>
+__device__ __forceinline__ void unpack(Steps<N>& in, int at, uint32_t r,
+                                       uint32_t q, uint32_t h, uint32_t g) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    in.rd[at + k] = (r >> (8 * k)) & 0xff;
+    in.q4[at + k] = ((q >> (8 * k)) & 0xff) << 2;
+    in.hp[at + k] = (h >> (8 * k)) & 0xff;
+    in.g4[at + k] = ((g >> (8 * k)) & 0xff) << 2;
+  }
+}
+
+#if !PTT_K1_STAGED
+// Each block's words come from device memory directly, the next block's
+// loaded while the current one computes.
+struct PairLoader : PairRows {
+  uint32_t nr[kUnroll / 4], nq[kUnroll / 4], nh[kUnroll / 4], ng[kUnroll / 4];
+
+  __device__ __forceinline__ void begin() {}
+
+  __device__ __forceinline__ void prepare(int) {}
+
+  template <bool CLAMP, int N>
+  __device__ __forceinline__ void fetch(int t0, Steps<N>& in) {
+#pragma unroll
+    for (int w = 0; w < N / 4; ++w) {
+      uint32_t r, q, h, g;
+      if (N != kUnroll || t0 == 0) {
+        load(t0 + 4 * w, r, q, h, g);  // the peeled first block
+      } else {
+        r = nr[w], q = nq[w], h = nh[w], g = ng[w];
+      }
+      unpack(in, 4 * w, r, q, h, g);
+    }
+#pragma unroll
+    for (int w = 0; w < kUnroll / 4; ++w)
+      load(t0 + N + 4 * w, nr[w], nq[w], nh[w], ng[w]);
+  }
+};
+#else
+// The pair's bytes staged in shared memory first, a tile of T steps at a
+// time, as 32-bit words [step / 4][pair]: a warp's byte reads of one step
+// and its word stores both touch 32 consecutive words.
+struct PairLoader : PairRows {
+  uint8_t* R;  // this thread's word column in each staged stream
+  uint8_t* Q;
+  uint8_t* H;
+  uint8_t* G;
+  int row;     // bytes per word row: 4 * blockDim.x
+  int T, ts;   // tile length (steps, a multiple of 8), tile start
+  int end;     // steps this pair runs
+
+  __device__ __forceinline__ void stage() {
+    const int te = min(ts + T, end);
+    for (int w = 0; ts + 4 * w < te; ++w) {
+      uint32_t h, g;
+      const uint32_t r = read_word(srow, ts + 4 * w, 0x30303030u);
+      const uint32_t q = read_word(qrow, ts + 4 * w, 0x40404040u);
+      hap_words(ts + 4 * w, h, g);
+      *reinterpret_cast<uint32_t*>(R + w * row) = r;
+      *reinterpret_cast<uint32_t*>(Q + w * row) = q;
+      *reinterpret_cast<uint32_t*>(H + w * row) = h;
+      *reinterpret_cast<uint32_t*>(G + w * row) = g;
+    }
+    for (int w = max(te - ts + 3, 0) >> 2; w < (te + kLanes - ts + 3) >> 2;
+         ++w) {
+      uint32_t h, g;
+      hap_words(ts + 4 * w, h, g);
+      *reinterpret_cast<uint32_t*>(H + w * row) = h;
+      *reinterpret_cast<uint32_t*>(G + w * row) = g;
+    }
+  }
+
+  __device__ __forceinline__ void begin() { stage(); }
+
+  __device__ __forceinline__ void prepare(int t0) {
+    if (t0 >= ts + T) {
+      ts = t0;
+      stage();
+    }
+  }
+
+  template <bool CLAMP, int N>
+  __device__ __forceinline__ void fetch(int t0, Steps<N>& in) const {
+    const int i0 = t0 - ts;  // step t0's index in the tile, a multiple of 4
+#pragma unroll
+    for (int w = 0; w < N / 4; ++w) {
+      const int off = ((i0 >> 2) + w) * row;
+      unpack(in, 4 * w, *reinterpret_cast<const uint32_t*>(R + off),
+             *reinterpret_cast<const uint32_t*>(Q + off),
+             *reinterpret_cast<const uint32_t*>(H + off + 2 * row),
+             *reinterpret_cast<const uint32_t*>(G + off + 2 * row));
+    }
+  }
+};
+#endif
+
+__global__ void __launch_bounds__(kMaxThreads)
 band_align_kernel(const int32_t* __restrict__ hap,   // [n_steps + 8, B]
                   const int32_t* __restrict__ go4,   // [n_steps + 8, B]
                   const int32_t* __restrict__ read,  // [n_steps, B]
@@ -46,111 +458,125 @@ band_align_kernel(const int32_t* __restrict__ hap,   // [n_steps + 8, B]
                   const int32_t* __restrict__ rlen,  // [B]
                   int32_t* __restrict__ out,         // [B]
                   int B, int n_steps, int ge, int npr) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t stride = (size_t)B;
+  // A lane past B mirrors pair B-1 (so the warp's reductions and blocks
+  // stay whole) and writes nothing.
+  const int lane_b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = min(lane_b, B - 1);
+  PaddedLoader ld{hap, go4, read, qual4, (size_t)B, b, n_steps - 1};
+  const int read_len = __ldg(rlen + b);
+  const int end = min(read_len + kLanes, n_steps);
+  const int lo = __reduce_min_sync(0xffffffffu, end - kLanes);
+  const int hi = __reduce_max_sync(0xffffffffu, end);
+  const int score = dp_run(ld, read_len, end, lo, hi, ge, npr);
+  if (lane_b < B) out[b] = score;
+}
 
-  int m1[kLanes], i1[kLanes], d1[kLanes], m2[kLanes], i2[kLanes], d2[kLanes];
-  int s1w[kLanes], gow[kLanes], s2w[kLanes], q2w[kLanes];
-#pragma unroll
-  for (int r = 0; r < kLanes; ++r) {
-    m1[r] = i1[r] = d1[r] = m2[r] = i2[r] = d2[r] = kPosInf;
-    s1w[r] = hap[r * stride + b];
-    gow[r] = go4[r * stride + b];
-    s2w[r] = kPosInf;
-    q2w[r] = 64 * 4;
-  }
-  const int read_len = rlen[b];
-  int minsc = kPosInf;
+__global__ void __launch_bounds__(kMaxThreads)
+band_align_pairs_kernel(const uint8_t* __restrict__ hap_mat,   // [H, L1B]
+                        const uint8_t* __restrict__ go_mat,    // [H, L1B]
+                        const uint8_t* __restrict__ seq_mat,   // [A, L2]
+                        const uint8_t* __restrict__ qual_mat,  // [A, L2]
+                        const int32_t* __restrict__ pair_hap,  // [B]
+                        const int32_t* __restrict__ pair_read, // [B]
+                        const int32_t* __restrict__ pair_seg,  // [B]
+                        const int32_t* __restrict__ rlen,      // [B]
+                        int32_t* __restrict__ out,             // [B]
+                        int B, int L1B, int L2, int T, int ge, int npr,
+                        int rq_aligned, int hg_aligned) {
+  // As above, a lane past B mirrors pair B-1; no block-wide barrier.
+  const int lane_b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = min(lane_b, B - 1);
+  const int read_len = __ldg(rlen + b);
+  const int ph = __ldg(pair_hap + b), pr = __ldg(pair_read + b);
+  const int end = min(read_len + kLanes, L2 + kLanes);
+  PairLoader ld;
+  ld.hrow = hap_mat + (size_t)ph * L1B;
+  ld.grow = go_mat + (size_t)ph * L1B;
+  ld.srow = seq_mat + (size_t)pr * L2;
+  ld.qrow = qual_mat + (size_t)pr * L2;
+  ld.ps = __ldg(pair_seg + b);
+  ld.L1B = L1B;
+  ld.valid = max(min(read_len, L2), 0);
+  ld.len1 = read_len + 15;
+  ld.rq_aligned = rq_aligned != 0;
+  ld.hg_aligned = hg_aligned != 0;
+#if PTT_K1_STAGED
+  extern __shared__ uint32_t staged[];
+  const int P = blockDim.x;
+  uint8_t* base = reinterpret_cast<uint8_t*>(staged) + 4 * threadIdx.x;
+  ld.R = base;
+  ld.Q = base + T * P;
+  ld.H = base + 2 * T * P;
+  ld.G = base + (3 * T + kLanes) * P;
+  ld.row = 4 * P;
+  ld.T = T;
+  ld.ts = 0;
+  ld.end = end;
+#endif
+  ld.begin();
+  const int lo = __reduce_min_sync(0xffffffffu, end - kLanes);
+  const int hi = __reduce_max_sync(0xffffffffu, end);
+  const int score = dp_run(ld, read_len, end, lo, hi, ge, npr);
+  if (lane_b < B) out[b] = score;
+}
 
-  for (int s2 = 0; s2 < n_steps; ++s2) {
-    const size_t off = (size_t)s2 * stride + b;
-    const int new_seq2 = read[off];
-    const int new_qual2 = qual4[off];
-    const int hap_c = hap[off + kLanes * stride];
-    const int go_c = go4[off + kLanes * stride];
-    // Exactly one row holds the exit cell while the wavefront crosses the
-    // read's end (0 <= exit_row < 8); otherwise no row matches.
-    const int exit_row = s2 - read_len;
-
-    // ---- even phase ------------------------------------------------------
-#pragma unroll
-    for (int r = kLanes - 1; r > 0; --r) {
-      s2w[r] = s2w[r - 1];
-      q2w[r] = q2w[r - 1];
-    }
-    s2w[0] = new_seq2;
-    q2w[0] = new_qual2;
-
-#pragma unroll
-    for (int r = 0; r < kLanes; ++r) {
-      if (r == s2) {  // only fires while s2 < 8
-        m1[r] = -0x8000;
-        m2[r] = -0x8000;
-      }
-      m1[r] = imin(m1[r], imin(i1[r], d1[r]));
-      if (r == exit_row) minsc = imin(minsc, m1[r]);
-    }
-
-    int d1_new[kLanes];
-#pragma unroll
-    for (int r = 0; r < kLanes; ++r) {
-      const int nq = s1w[r] == kNChar ? 0 : kPosInf;
-      const int sub = imin(s2w[r] == s1w[r] ? 0 : q2w[r], nq);
-      m1[r] += sub;
-      const int gow_down = r < kLanes - 1 ? gow[r + 1] : 0;
-      d1_new[r] = imin(d2[r] + ge, imin(m2[r], i2[r]) + gow_down);
-      i1[r] = imin(i2[r] + ge, m2[r] + gow[r]) + npr;
-    }
-    d1[0] = kPosInf;
-#pragma unroll
-    for (int r = 1; r < kLanes; ++r) d1[r] = d1_new[r - 1];
-
-    // ---- odd phase -------------------------------------------------------
-#pragma unroll
-    for (int r = 0; r < kLanes - 1; ++r) {
-      s1w[r] = s1w[r + 1];
-      gow[r] = gow[r + 1];
-    }
-    s1w[kLanes - 1] = hap_c;
-    gow[kLanes - 1] = go_c;
-
-#pragma unroll
-    for (int r = 0; r < kLanes; ++r) {
-      m2[r] = imin(m2[r], imin(i2[r], d2[r]));
-      if (r == exit_row) minsc = imin(minsc, m2[r]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < kLanes; ++r) {
-      const int nq = s1w[r] == kNChar ? 0 : kPosInf;
-      const int sub2 = imin(s2w[r] == s1w[r] ? 0 : q2w[r], nq);
-      m2[r] += sub2;
-      d2[r] = imin(d1[r] + ge, imin(m1[r], i1[r]) + gow[r]);
-    }
-    // i2 reads the shifted-down i1/m1 of rows r+1; row 7 is forced to
-    // POS_INF, so rows are updated in ascending order from unchanged i1/m1.
-#pragma unroll
-    for (int r = 0; r < kLanes - 1; ++r) {
-      i2[r] = imin(i1[r + 1] + ge, m1[r + 1] + gow[r]) + npr;
-    }
-    i2[kLanes - 1] = kPosInf;
-  }
-  out[b] = (minsc + 0x8000) >> 2;  // arithmetic shift, as in the TPU kernel
+// Threads per block: the largest of 128, 64, 32 that still gives every SM
+// a block (one pair per thread).
+int threads_for(int B) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int P = kMaxThreads;
+  while (P > kMinThreads && (B + P - 1) / P < sms) P /= 2;
+  return P;
 }
 
 }  // namespace
 
-// Launch on `stream` without synchronising.  Returns cudaGetLastError() so
-// the caller can raise on a refused launch.
+// The padded entry.  Launch on `stream` without synchronising; returns
+// cudaGetLastError() so the caller can raise on a refused launch.
 extern "C" int ptt_band_align(const void* hap, const void* go4,
                               const void* read, const void* qual4,
                               const void* rlen, void* out, int B, int n_steps,
                               int gapextend, int nucprior, void* stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  band_align_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const int P = threads_for(B);
+  band_align_kernel<<<(B + P - 1) / P, P, 0, (cudaStream_t)stream>>>(
       (const int32_t*)hap, (const int32_t*)go4, (const int32_t*)read,
       (const int32_t*)qual4, (const int32_t*)rlen, (int32_t*)out, B,
       n_steps, 4 * gapextend, 4 * nucprior);
+  return (int)cudaGetLastError();
+}
+
+// The pair entry (the main path).  Same launch contract.
+extern "C" int ptt_band_align_pairs(const void* hap_mat, const void* go_mat,
+                                    const void* seq_mat, const void* qual_mat,
+                                    const void* pair_hap, const void* pair_read,
+                                    const void* pair_seg, const void* rlen,
+                                    void* out, int B, int L1B, int L2,
+                                    int gapextend, int nucprior, void* stream) {
+  const int P = threads_for(B);
+  // The staged variant's tile: T steps of read / quality, T + 8 hap /
+  // gap-open columns per pair, within 96 KB a block.
+  int T = (L2 + 2 * kLanes - 1) / kLanes * kLanes;
+  const int t_max = (96 * 1024 / P - 2 * kLanes) / 4 / kLanes * kLanes;
+  if (T > t_max) T = t_max;
+  const int smem = PTT_K1_STAGED ? P * (4 * T + 2 * kLanes) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        band_align_pairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int rq_aligned = L2 % 4 == 0 && (uintptr_t)seq_mat % 4 == 0 &&
+                         (uintptr_t)qual_mat % 4 == 0;
+  const int hg_aligned = L1B % 4 == 0 && L1B >= 4 &&
+                         (uintptr_t)hap_mat % 4 == 0 &&
+                         (uintptr_t)go_mat % 4 == 0;
+  band_align_pairs_kernel<<<(B + P - 1) / P, P, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)hap_mat, (const uint8_t*)go_mat,
+      (const uint8_t*)seq_mat, (const uint8_t*)qual_mat,
+      (const int32_t*)pair_hap, (const int32_t*)pair_read,
+      (const int32_t*)pair_seg, (const int32_t*)rlen, (int32_t*)out, B, L1B,
+      L2, T, 4 * gapextend, 4 * nucprior, rq_aligned, hg_aligned);
   return (int)cudaGetLastError();
 }

@@ -19,11 +19,11 @@ PendingAlignments it returns is finalized.  Where the pairs align depends
 on the device given:
 
 * a torch device: per read-length group the deduplicated haplotype / read
-  matrices upload once, and each chunk of pairs runs gather/pad and the
-  banded DP on the device -- K1 (ops/align_cuda.band_align_padded) for
-  plain scores, K2 (its traceback mode) for --calculateFlankScore
-  requests, whose per-pair backtrace and flank penalty then run on the
-  host.  Results stay on the device until copy_to_host() fetches them;
+  matrices upload once, and each chunk of pairs runs the banded DP on
+  the device -- K1's pair entry (ops/align_cuda.band_align_pairs), which
+  gathers and pads its pairs itself, for plain scores; gather/pad, then
+  K2 (the DP's traceback mode), for --calculateFlankScore requests, whose
+  per-pair backtrace and flank penalty then run on the host.  Results stay on the device until copy_to_host() fetches them;
 * None, the host path of a pool's host worker: the native C++ 8-lane
   wavefront (bit-identical scores) for plain requests and the scalar
   traceback (_scalar_flank_scores) for flank requests.  torch is never
@@ -60,8 +60,8 @@ from ..utils.observability import GLOBAL_METRICS as metrics
 
 _N_CHAR = ord("N")
 
-# Fixed lane widths of a K1 launch: a chunk of pairs is padded to the
-# smallest that holds it.
+# The JAX package's lane widths of a K1 launch.  The port launches K1 at
+# each chunk's own pair count; the largest width caps a chunk (K1 and K2).
 LANE_BUCKETS = (2048, 16384)
 
 # Bound on the int32 label block [n_steps*8, B] of one K2 launch; a read
@@ -587,7 +587,7 @@ class PendingAlignments:
     """In-flight alignments for a batch of requests.
 
     `groups` holds, per read-length group, (owner requests, host score
-    buffer, device chunks): the K1 chunks as (tensor, pair slice, take),
+    buffer, device chunks): the K1 chunks as (scores tensor, pair slice),
     none on the host path, whose native scores are already in the buffer.
     `flank_groups` holds the K2 chunks of flank requests as (owner
     requests, [((score, idx, bp), pair slice)]).  copy_to_host() fetches
@@ -610,9 +610,9 @@ class PendingAlignments:
         """Copy every K1 chunk's scores into its group's host buffer in one
         device->host transfer, and every K2 chunk's (score, idx, bp) in one
         transfer per chunk; drop the device tensors."""
-        pieces = [(out_scores, sl, dev[:take])
+        pieces = [(out_scores, sl, dev)
                   for _, out_scores, chunks in self.groups
-                  for dev, sl, take in chunks]
+                  for dev, sl in chunks]
         for (out_scores, sl, _), host in zip(pieces,
                                              fetch([p[2] for p in pieces])):
             out_scores[sl] = host
@@ -843,17 +843,12 @@ def _group_matrices(group):
     return (hap_mat, go_mat, seq_mat, qual_mat), pairs
 
 
-def _pair_index(pairs, sl: slice, lane: int, pad_len: int, device):
-    """[4, lane] int32 pair hap / read / segment / read-length rows of a
-    chunk on `device`; lanes past the chunk's pairs are pad pairs (hap 0,
-    read 0, segment 0, length pad_len)."""
-    idx = np.zeros((4, lane), np.int32)
-    take = sl.stop - sl.start
-    for row, values in enumerate(pairs):
-        idx[row, :take] = values[sl]
-    idx[3, take:] = pad_len
+def _pair_index(pairs, sl: slice, device):
+    """[4, n] int32 pair hap / read / segment / read-length rows of the
+    chunk's n pairs on `device` (no pad pairs)."""
     import torch
 
+    idx = np.stack([values[sl] for values in pairs]).astype(np.int32)
     return torch.from_numpy(idx).to(device)
 
 
@@ -895,13 +890,13 @@ def dispatch_alignment_requests(
         return pending
     import torch
 
-    from ..ops.align_cuda import band_align_padded, band_align_traceback_padded
+    from ..ops.align_cuda import band_align_pairs, band_align_traceback_padded
     from ..ops.align_torch import gather_pad
 
     # Group by (flank mode, read-length bucket); concatenate pair rows
     # across windows.  Each group's matrices upload once; per chunk only
-    # four [lane] index vectors ship and the pair rows are gathered on the
-    # device.
+    # four index vectors ship: K1 gathers and pads its pairs itself, K2's
+    # are gathered and padded on the device first.
     by_group: dict = {}
     for req in live:
         key = (bool(req.calculate_flank_score), req.sub_seq.shape[1])
@@ -920,26 +915,17 @@ def dispatch_alignment_requests(
                               FLANK_BP_BYTES // ((L2 + 8) * N_LANES * 4)))
             for done in range(0, total, lane):
                 sl = slice(done, min(total, done + lane))
-                padded = gather_pad(*mats, *_pair_index(
-                    pairs, sl, sl.stop - sl.start, 0, device))
+                padded = gather_pad(*mats, *_pair_index(pairs, sl, device))
                 chunks.append((band_align_traceback_padded(
                     *padded, gapextend=gapextend, nucprior=nucprior), sl))
             pending.flank_groups.append((group, chunks))
             continue
-        done = 0
-        while done < total:
-            remaining = total - done
-            # Smallest bucket that covers the remainder (or the largest).
-            lane = next((b for b in LANE_BUCKETS if remaining <= b),
-                        LANE_BUCKETS[-1])
-            take = min(remaining, lane)
-            sl = slice(done, done + take)
-            padded = gather_pad(*mats, *_pair_index(pairs, sl, lane,
-                                                    min(8, L2), device))
-            dev = band_align_padded(*padded, gapextend=gapextend,
-                                    nucprior=nucprior)
-            chunks.append((dev, sl, take))
-            done += take
+        # K1 chunks hold exactly their pairs, at most LANE_BUCKETS[-1].
+        for done in range(0, total, LANE_BUCKETS[-1]):
+            sl = slice(done, min(total, done + LANE_BUCKETS[-1]))
+            dev = band_align_pairs(*mats, *_pair_index(pairs, sl, device),
+                                   gapextend=gapextend, nucprior=nucprior)
+            chunks.append((dev, sl))
         pending.groups.append((group, np.empty(total, np.int64), chunks))
 
     return pending

@@ -1,17 +1,21 @@
 """The banded-alignment DP kernels (csrc/*.cu) and their wrappers.
 
-`band_align_padded` is the port of
-platypus_tpu/ops/align_pallas.py::band_align_padded_pallas (K1, the main
-path), `band_align_traceback_padded` that of
+K1 (csrc/band_align.cu) is the port of
+platypus_tpu/ops/align_pallas.py::band_align_padded_pallas, the main path;
+its library has two entries over one DP body: `band_align_pairs`, which
+gathers and pads each pair from the deduplicated matrices itself (the
+main path's dispatch and the mesh's lane step), and `band_align_padded`,
+on gather/pad's column tensors (the graft entry, the mesh's demo step).
+`band_align_traceback_padded` is the port of
 band_align_traceback_padded_pallas (K2, --calculateFlankScore).  A tensor
 on the CPU goes to the plain torch version (align_torch); a CUDA tensor
 launches the hand-written sm_90a kernel or raises.  Nothing falls back.
 
-Each kernel is compiled with nvcc into a shared library with a plain C
-interface and bound through ctypes.  The build runs at first use, into
-platypus_tpu_torch/_build/, keyed by a hash of the source and flags, so a
-fresh checkout builds it on its first call.  This module imports no CUDA
-tool: it imports on a machine without nvcc or a card.
+Each kernel library is compiled with nvcc into a shared library with a
+plain C interface and bound through ctypes.  The build runs at first use,
+into platypus_tpu_torch/_build/, keyed by a hash of the source and flags,
+so a fresh checkout builds it on its first call.  This module imports no
+CUDA tool: it imports on a machine without nvcc or a card.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from .align_torch import (band_align_padded_reference,
+                          band_align_pairs_reference,
                           band_align_traceback_padded_reference)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,16 +40,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 class Kernel(NamedTuple):
-    symbol: str       # C entry point of csrc/<library name>.cu
-    argtypes: list
-    replaces: str     # the TPU kernel it ports
+    entries: Dict[str, list]  # C entry points of csrc/<library name>.cu
+    replaces: str             # the TPU kernel it ports
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS: Dict[str, Kernel] = {
-    "band_align": Kernel("ptt_band_align", [_P] * 6 + [_I] * 4 + [_P],
+    "band_align": Kernel({"ptt_band_align_pairs": [_P] * 9 + [_I] * 5 + [_P],
+                          "ptt_band_align": [_P] * 6 + [_I] * 4 + [_P]},
                          "platypus_tpu/ops/align_pallas.py:48"),
-    "band_align_tb": Kernel("ptt_band_align_tb", [_P] * 8 + [_I] * 4 + [_P],
+    "band_align_tb": Kernel({"ptt_band_align_tb": [_P] * 8 + [_I] * 4 + [_P]},
                             "platypus_tpu/ops/align_pallas.py:145"),
 }
 
@@ -110,10 +115,10 @@ def load(name: str) -> ctypes.CDLL:
     """A kernel library, built and bound on first use."""
     if name not in _libs:
         lib = ctypes.CDLL(build(name))
-        kernel = KERNELS[name]
-        fn = getattr(lib, kernel.symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = kernel.argtypes
+        for symbol, argtypes in KERNELS[name].entries.items():
+            fn = getattr(lib, symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
         _libs[name] = lib
     return _libs[name]
 
@@ -173,6 +178,59 @@ def band_align_padded(hap_cols: torch.Tensor, go4_cols: torch.Tensor,
     _launch(dev, "band_align", lib.ptt_band_align,
             *(t.data_ptr() for t in args), out.data_ptr(), B, n_steps,
             int(gapextend), int(nucprior))
+    return out
+
+
+def _check_pair_inputs(mats, index):
+    """uint8 [H, L1B] hap / gap-open and [A, L2] read / quality matrices and
+    int32 [B] pair hap / read / segment / read-length rows, contiguous and
+    on one device.  Returns (B, L1B, L2)."""
+    dev = index[3].device
+    hap_shape, seq_shape = tuple(mats[0].shape), tuple(mats[2].shape)
+    if len(hap_shape) != 2 or len(seq_shape) != 2 or len(index[3].shape) != 1:
+        raise ValueError("band_align_pairs: the matrices must be 2-d and the "
+                         "pair rows 1-d")
+    B = index[3].shape[0]
+    names = ("hap_mat", "go_mat", "seq_mat", "qual_mat", "pair_hap",
+             "pair_read", "pair_seg", "read_len")
+    shapes = (hap_shape, hap_shape, seq_shape, seq_shape) + ((B,),) * 4
+    dtypes = (torch.uint8,) * 4 + (torch.int32,) * 4
+    for name, t, dtype, shape in zip(names, (*mats, *index), dtypes, shapes):
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"band_align_pairs: {name} must be {dtype} on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"band_align_pairs: {name} must be a contiguous "
+                             f"{shape} tensor, got {tuple(t.shape)}")
+    return B, hap_shape[1], seq_shape[1]
+
+
+def band_align_pairs(hap_mat: torch.Tensor, go_mat: torch.Tensor,
+                     seq_mat: torch.Tensor, qual_mat: torch.Tensor,
+                     pair_hap: torch.Tensor, pair_read: torch.Tensor,
+                     pair_seg: torch.Tensor, read_len: torch.Tensor,
+                     gapextend: int = 3, nucprior: int = 2) -> torch.Tensor:
+    """K1's pair entry: the deduplicated uint8 matrices (hap and gap-open
+    [H, L1B], read and quality [A, L2]) and int32 [B] pair rows (hap row,
+    read row, segment start >= 0, read length <= L2) -> [B] int32 phred,
+    each pair gathered and sentinel-padded as align_torch.gather_pad does.
+    Launches exactly B pairs."""
+    mats = (hap_mat, go_mat, seq_mat, qual_mat)
+    index = (pair_hap, pair_read, pair_seg, read_len)
+    dev = read_len.device
+    if dev.type == "cpu":
+        return band_align_pairs_reference(*mats, *index, gapextend=gapextend,
+                                          nucprior=nucprior)
+    if dev.type != "cuda":
+        raise ValueError(f"band_align_pairs: unsupported device {dev}")
+    B, L1B, L2 = _check_pair_inputs(mats, index)
+    lib = load("band_align")
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    _launch(dev, "band_align", lib.ptt_band_align_pairs,
+            *(t.data_ptr() for t in (*mats, *index)), out.data_ptr(), B, L1B,
+            L2, int(gapextend), int(nucprior))
     return out
 
 

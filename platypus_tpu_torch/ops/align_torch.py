@@ -3,9 +3,10 @@
 Twin of platypus_tpu/ops/align_jax.py.  The sentinel conventions carry
 over exactly: haplotype columns pad with 'N', gap-open columns clamp to the
 value at len1-1 (len1 = read_len + 15), read columns pad with '0' and
-4*quality columns with 4*64.  `band_align_padded_reference` and
-`band_align_traceback_padded_reference` are the plain versions of the two
-CUDA kernels in ops/align_cuda.py: the CPU tests run them, and
+4*quality columns with 4*64.  `band_align_pairs_reference` (gather/pad,
+then the plain DP), `band_align_padded_reference` and
+`band_align_traceback_padded_reference` are the plain versions of the
+CUDA kernels' entries in ops/align_cuda.py: the CPU tests run them, and
 chip_smoke.py holds each kernel against its plain version on the card.
 
 Scores are integer phred, bit-identical to ops/align_core.band_align_single
@@ -59,9 +60,10 @@ def _pad_core(hap_seg, gapopen_seg, read, qual, read_len):
 
 def gather_pad(hap_mat, go_mat, seq_mat, qual_mat,
                pair_hap, pair_read, pair_seg, read_len):
-    """Per-chunk pair materialisation (twin of align_jax._gather_pad_device):
-    gather each pair's haplotype segment and read row from the
-    deduplicated [H, L1B] / [A, L2] matrices, then sentinel-pad.
+    """Per-chunk pair materialisation (twin of align_jax._gather_pad_device)
+    for K2 and for K1's plain pair version: gather each pair's haplotype
+    segment and read row from the deduplicated [H, L1B] / [A, L2]
+    matrices, then sentinel-pad.
 
     A segment may run past the matrix width: JAX's gather clamps such
     column indices to L1B-1, torch's raises, so the clamp is explicit."""
@@ -75,6 +77,19 @@ def gather_pad(hap_mat, go_mat, seq_mat, qual_mat,
     go_seg = go_mat[rows, cols]
     pr = pair_read.long()
     return _pad_core(hap_seg, go_seg, seq_mat[pr], qual_mat[pr], read_len)
+
+
+def band_align_pairs_reference(hap_mat, go_mat, seq_mat, qual_mat, pair_hap,
+                               pair_read, pair_seg, read_len,
+                               gapextend: int = 3, nucprior: int = 2):
+    """Plain version of K1's pair entry (align_cuda.band_align_pairs): the
+    pairs gathered and sentinel-padded from the deduplicated [H, L1B] hap /
+    gap-open and [A, L2] read / quality matrices (gather_pad), then the
+    plain DP -> [B] int32 phred."""
+    return band_align_padded_reference(
+        *gather_pad(hap_mat, go_mat, seq_mat, qual_mat, pair_hap, pair_read,
+                    pair_seg, read_len),
+        gapextend=gapextend, nucprior=nucprior)
 
 
 def pad_alignment_inputs(hap_seg, gapopen_seg, read, qual, read_len,

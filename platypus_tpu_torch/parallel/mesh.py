@@ -8,9 +8,10 @@ out:
 * windows go to the mesh's `win` rows, in contiguous blocks of the
   bucketed window axis;
 * a row's (window, hap, read) pairs are split over its `lane` devices,
-  each of which runs the port's gather/pad and K1 (csrc/band_align.cu)
-  on its share -- the JAX step runs the XLA scan band_align_padded there,
-  the same function bit for bit;
+  each of which runs K1's pair entry (csrc/band_align.cu, which gathers
+  and pads its pairs from the device's copy of the matrices) on the real
+  pairs of its share -- the JAX step runs gather/pad and the XLA scan
+  band_align_padded there, the same function bit for bit;
 * the row's scores come together on the row's first device, which
   scatter-mins them into the [W, Hmax, Rmax] score tensor, applies the
   short / aligned / hap masks and runs the fused inference
@@ -37,8 +38,7 @@ import numpy as np
 import torch
 
 from ..engine.score import flank_pair_scores, window_loglik_from_pair_scores
-from ..ops.align_cuda import band_align_padded
-from ..ops.align_torch import gather_pad
+from ..ops.align_cuda import band_align_padded, band_align_pairs
 from ..ops.kmer import HASH_NUCS
 from ..ops.likelihood import genotype_index_pairs
 from ..ops.likelihood_torch import (em_frequencies, genotype_log_likelihoods,
@@ -138,7 +138,7 @@ def _pack_group(items, n_individuals: int, n_win: int, L2: int,
     """The host packing of one group (JAX mesh.py:310-396): deduplicated
     hap / gap-open / read / qual matrices, the flat pair rows and the
     per-window scatter targets and masks, in the JAX program's bucketed
-    shapes (the matrices' widths decide gather_pad's column clamp).  The
+    shapes (the matrices' widths decide the pairs' column clamp).  The
     pair rows hold only the real pairs, in window order: `p_first[k]` is
     window k's first; the padding to a device multiple is per row
     (_row_pairs)."""
@@ -221,8 +221,8 @@ def _row_pairs(g: dict, r: int, Wr: int, lane: int) -> np.ndarray:
     pairs of windows [r*Wr, (r+1)*Wr), then pad pairs (index -1) up to a
     multiple of `lane`, so every lane device gets as many as the others,
     as GSPMD gives every device an equal slice of the JAX program's
-    padded pair axis.  A pad pair is hap 0, read 0, segment 0, length
-    min(8, L2), as there."""
+    padded pair axis.  Pad pairs are not aligned: their scores are
+    INT32_MAX, which the scatter-min leaves unchanged."""
     n_items = len(g["items"])
     lo = g["p_first"][min(r * Wr, n_items)]
     hi = g["p_first"][min((r + 1) * Wr, n_items)]
@@ -246,7 +246,7 @@ def _launch_group(g: dict, mesh: DeviceMesh, use_cap: bool, use_flank: bool,
     the share (None for flank groups), em, freq, ratios, em_margin), all
     on the row's first device."""
     n_win, lane = mesh.shape["win"], mesh.shape["lane"]
-    Wb, Hmax, Rmax, L2 = g["Wb"], g["Hmax"], g["Rmax"], g["L2"]
+    Wb, Hmax, Rmax = g["Wb"], g["Hmax"], g["Rmax"]
     Wr = Wb // n_win
     h1, h2 = genotype_index_pairs(Hmax)
     mats: Dict[torch.device, list] = {}
@@ -267,23 +267,24 @@ def _launch_group(g: dict, mesh: DeviceMesh, use_cap: bool, use_flank: bool,
             scores = up(_take(g["pair_scores"], share, 0))
             row_scores = None
         else:
-            # gather/pad + K1 on each lane device, on its slice of the share
-            idx = np.stack([_take(g["pair_hap"], share, 0),
-                            _take(g["pair_read"], share, 0),
-                            _take(g["pair_seg"], share, 0),
-                            _take(g["pair_len"], share, min(8, L2))])
+            # K1 on each lane device, on the real pairs of its slice of the
+            # share (the real pairs come first)
+            real = share[:n_real]
+            idx = np.stack([g[k][real] for k in ("pair_hap", "pair_read",
+                                                 "pair_seg", "pair_len")])
             per_lane = len(share) // lane
             pieces = []
             for c, dev in enumerate(row_devs):
-                if per_lane == 0:
+                lo, hi = c * per_lane, min((c + 1) * per_lane, n_real)
+                if hi <= lo:
                     break
-                cols = idx[:, c * per_lane : (c + 1) * per_lane]
-                padded = gather_pad(*mats[dev], *up(cols, dev))
-                pieces.append(band_align_padded(
-                    *padded, gapextend=gapextend, nucprior=nucprior
+                pieces.append(band_align_pairs(
+                    *mats[dev], *up(idx[:, lo:hi].astype(np.int32), dev),
+                    gapextend=gapextend, nucprior=nucprior
                 ).to(dev0, non_blocking=True))
-            scores = (torch.cat(pieces) if pieces
-                      else torch.empty(0, dtype=torch.int32, device=dev0))
+            pieces.append(torch.full((len(share) - n_real,), _INT32_BIG,
+                                     dtype=torch.int32, device=dev0))
+            scores = torch.cat(pieces)
             row_scores = scores
         # scatter-min into the row's [Wr, Hmax, Rmax] score tensor; pad
         # pairs carry INT32_MAX to index 0, which the min leaves unchanged

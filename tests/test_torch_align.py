@@ -141,6 +141,78 @@ def test_traceback_dp_reproduces_flank_goldens():
                                    bp.numpy()) == []
 
 
+def _pair_matrices(seed, B, L2, overhang, n_frac, mixed):
+    """Deduplicated matrices as engine/score.py uploads them (uint8 [H,
+    L1B] hap / gap-open, [A, L2] read / quality) and int32 pair rows; each
+    read is cut from a hap at its pair's segment with point mutations.
+    `overhang` starts a third of the segments near the hap's end, past
+    which gather/pad clamps the columns."""
+    rng = np.random.default_rng(seed)
+    H, A = 9, 60
+    L1B = 2 * L2 + 40
+    hap_mat = rng.choice(BASES, size=(H, L1B)).astype(np.uint8)
+    go_mat = rng.integers(3, 79, size=(H, L1B)).astype(np.uint8)
+    ph = rng.integers(0, H, B).astype(np.int32)
+    pr = rng.integers(0, A, B).astype(np.int32)
+    ps = rng.integers(0, L1B - (L2 + 15), B).astype(np.int32)
+    if overhang:
+        k = max(1, B // 3)
+        ps[:k] = rng.integers(L1B - L2, L1B, k)
+    lo = 8 if mixed else L2
+    rl = rng.integers(lo, L2 + 1, B).astype(np.int32)
+    seq_mat = rng.choice(BASES, size=(A, L2)).astype(np.uint8)
+    for a in range(A):
+        uses = np.nonzero(pr == a)[0]
+        if len(uses):
+            b = uses[0]
+            seg = hap_mat[ph[b], ps[b] + rng.integers(0, 8):][:L2]
+            seq_mat[a, : len(seg)] = seg
+    mut = rng.random(seq_mat.shape) < 0.02
+    seq_mat[mut] = rng.choice(BASES, int(mut.sum()))
+    if n_frac:
+        hap_mat[rng.random(hap_mat.shape) < n_frac] = ord("N")
+        seq_mat[rng.random(seq_mat.shape) < n_frac] = ord("N")
+    qual_mat = rng.integers(0, 60, size=(A, L2)).astype(np.uint8)
+    return (hap_mat, go_mat, seq_mat, qual_mat), (ph, pr, ps, rl)
+
+
+@pytest.mark.parametrize("seed,B,L2,overhang,n_frac,mixed", [
+    (21, 300, 40, True, 0.0, True),     # segments past the matrix width
+    (22, 256, 40, False, 0.0, True),    # mixed read lengths
+    (23, 256, 32, False, 0.03, False),  # 'N' bases, full-length reads
+    (24, 200, 40, True, 0.02, True),    # B not a multiple of 128
+    (25, 1, 40, False, 0.0, True),      # B = 1
+    (26, 64, 128, True, 0.01, True),    # the main path's L2 for 100 bp
+])
+def test_pair_entry_plain_version_matches_jax(seed, B, L2, overhang, n_frac,
+                                              mixed):
+    """band_align_pairs_reference (K1's pair entry's plain version) ==
+    the JAX package's _gather_pad_device followed by its XLA scan and by
+    the Pallas kernel in interpret mode, bitwise."""
+    mats, idx = _pair_matrices(seed, B, L2, overhang, n_frac, mixed)
+    jax_padded = _gather_pad_device(*mats, *idx)
+    want = np.asarray(band_align_padded(*jax_padded))
+    np.testing.assert_array_equal(
+        np.asarray(band_align_padded_pallas(*jax_padded)), want)
+    got = align_torch.band_align_pairs_reference(
+        *(torch.from_numpy(a) for a in (*mats, *idx)))
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_pair_wrapper_on_cpu_tensors_runs_plain_version():
+    """A CPU tensor reaches the pair entry's plain version; no launch is
+    counted."""
+    mats, idx = _pair_matrices(27, 100, 40, True, 0.01, True)
+    args = [torch.from_numpy(a) for a in (*mats, *idx)]
+    before = dict(align_cuda.LAUNCHES)
+    got = align_cuda.band_align_pairs(*args, gapextend=2, nucprior=1)
+    want = align_torch.band_align_padded_reference(
+        *align_torch.gather_pad(*args), gapextend=2, nucprior=1)
+    assert torch.equal(got, want)
+    assert align_cuda.LAUNCHES == before
+
+
 def test_traceback_wrapper_on_cpu_tensors_runs_plain_dp():
     """A CPU tensor reaches the plain traceback DP; no launch is counted."""
     cases, inputs = flank_goldens()

@@ -111,7 +111,7 @@ def test_beam_search_device_failure_stops_the_run(tmp_path, datasets,
     def failing_kernel(*args, **kwargs):
         raise RuntimeError("band_align kernel launch failed: CUDA error 719")
 
-    monkeypatch.setattr(align_cuda, "band_align_padded", failing_kernel)
+    monkeypatch.setattr(align_cuda, "band_align_pairs", failing_kernel)
     _name, workdir, ref_path = datasets("clustered")
     out = str(tmp_path / "port_fail.vcf")
     with pytest.raises(DeviceError, match="CUDA error 719"):

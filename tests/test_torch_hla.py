@@ -104,7 +104,8 @@ def test_hla_flank_cli_matches_jax_package(tmp_path, hla_setup):  # noqa: F811
 
 
 @pytest.mark.parametrize("kernel,extra", [
-    ("band_align_padded", []),
+    # K1's main-path wrapper is its pair entry; the case keeps its id
+    pytest.param("band_align_pairs", [], id="band_align_padded-extra0"),
     ("band_align_traceback_padded", ["--calculateFlankScore=1"]),
 ])
 def test_hla_window_kernel_failure_stops_the_run(tmp_path, hla_setup,  # noqa: F811

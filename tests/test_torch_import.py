@@ -191,6 +191,13 @@ def test_kernel_wrapper_rejects_other_devices():
         align_cuda.band_align_padded(t, t, t, t, t[0])
 
 
+def test_pair_wrapper_rejects_other_devices():
+    m = torch.zeros((4, 2), dtype=torch.uint8, device="meta")
+    t = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        align_cuda.band_align_pairs(m, m, m, m, t, t, t, t)
+
+
 def test_traceback_wrapper_rejects_other_devices():
     t = torch.zeros((4, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

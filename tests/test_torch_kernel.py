@@ -1,5 +1,7 @@
-"""K1 (platypus_tpu_torch/csrc/band_align.cu) and K2, its traceback mode
-(csrc/band_align_tb.cu), on the card, against their plain torch versions.
+"""K1 (platypus_tpu_torch/csrc/band_align.cu: its padded entry and its pair
+entry, which gathers and pads its pairs from the deduplicated matrices) and
+K2, its traceback mode (csrc/band_align_tb.cu), on the card, against their
+plain torch versions.
 These tests need a CUDA device and skip without one; this file imports no
 jax, so on a machine with a card and without jax run it as
 
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from chip_smoke import (flank_golden_mismatches, flank_goldens,
-                        golden_groups, random_pairs)
+                        golden_groups, pair_inputs, random_pairs)
 from platypus_tpu_torch.ops import align_cuda, align_torch
 
 
@@ -67,6 +69,55 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
                                      qual[:, ::2], rlen[::2])
     with pytest.raises(ValueError, match="int32 on"):
         align_cuda.band_align_padded(hap.cpu(), go, read, qual, rlen)
+
+
+@pytest.mark.cuda
+def test_pair_entry_matches_plain_version_on_card(cuda_device):
+    """The pair entry bitwise on every golden (identity indices), on
+    mixed-length pairs with 'N' bases at B = 1, 127 and 2047 and on
+    overhanging segments."""
+    cases = [(ge, npr, pair_inputs(inputs, cuda_device))
+             for ge, npr, inputs, _ in golden_groups()]
+    for seed, B in enumerate((1, 127, 2047)):
+        cases.append((3, 2, pair_inputs(random_pairs(20 + seed, B, 100),
+                                        cuda_device, width=128)))
+    cases.append((3, 2, pair_inputs(random_pairs(23, 1000, 128), cuda_device,
+                                    overhang_seed=23)))
+    cases.append((3, 2, pair_inputs(random_pairs(23, 1000, 128), cuda_device,
+                                    overhang_seed=23, width=160)))
+    for ge, npr, args in cases:
+        got = align_cuda.band_align_pairs(*args, gapextend=ge, nucprior=npr)
+        want = align_torch.band_align_pairs_reference(*args, gapextend=ge,
+                                                      nucprior=npr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_pair_entry_counts_each_launch(cuda_device):
+    args = pair_inputs(random_pairs(24, 300, 64), cuda_device)
+    before = dict(align_cuda.LAUNCHES)
+    align_cuda.band_align_pairs(*args)
+    align_cuda.band_align_pairs(*args)
+    before["band_align"] += 2
+    assert align_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_pair_entry_wrapper_rejects_bad_inputs(cuda_device):
+    hap, go, seq, qual, ph, pr, ps, rl = pair_inputs(random_pairs(25, 256, 32),
+                                                     cuda_device)
+    pairs = align_cuda.band_align_pairs
+    with pytest.raises(ValueError, match="uint8"):
+        pairs(hap.int(), go, seq, qual, ph, pr, ps, rl)
+    with pytest.raises(ValueError, match="int32"):
+        pairs(hap, go, seq, qual, ph.long(), pr, ps, rl)
+    with pytest.raises(ValueError, match="contiguous"):
+        pairs(hap, go, seq, qual, ph[::2], pr[::2], ps[::2], rl[::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        pairs(hap, go[:, :-1], seq, qual, ph, pr, ps, rl)
+    with pytest.raises(ValueError, match="int32 on"):
+        pairs(hap, go, seq, qual, ph, pr, ps.cpu(), rl)
 
 
 @pytest.mark.cuda
@@ -125,7 +176,8 @@ class _CudaLike:
         return self._t.data_ptr()
 
 
-@pytest.mark.parametrize("name", ["band_align", "band_align_tb"])
+@pytest.mark.parametrize("name", ["band_align", "band_align_tb",
+                                  "band_align_pairs"])
 def test_launch_runs_inside_the_inputs_device(monkeypatch, name):
     """The ctypes launch happens with the inputs' device current (a
     launch from cuda:0's context into cuda:1's memory would fault), and
@@ -154,16 +206,20 @@ def test_launch_runs_inside_the_inputs_device(monkeypatch, name):
     monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k:
                         _CudaLike(real_empty(*a, **k), torch.device(device)))
     monkeypatch.setattr(align_cuda, "load", lambda lib: SimpleNamespace(
-        **{align_cuda.KERNELS[lib].symbol: entry}))
-    inputs = [_CudaLike(t, dev) for t in align_torch.pad_alignment_inputs(
-        *random_pairs(9, 64, 32))]
+        **dict.fromkeys(align_cuda.KERNELS[lib].entries, entry)))
+    if name == "band_align_pairs":
+        tensors = pair_inputs(random_pairs(9, 64, 32), "cpu")
+    else:
+        tensors = align_torch.pad_alignment_inputs(*random_pairs(9, 64, 32))
+    inputs = [_CudaLike(t, dev) for t in tensors]
     wrapper = {"band_align": align_cuda.band_align_padded,
-               "band_align_tb": align_cuda.band_align_traceback_padded}[name]
+               "band_align_tb": align_cuda.band_align_traceback_padded,
+               "band_align_pairs": align_cuda.band_align_pairs}[name]
     before = dict(align_cuda.LAUNCHES)
     wrapper(*inputs)
     assert launched_on == [dev]
     assert current == [torch.device("cuda", 0)]
-    before[name] += 1
+    before["band_align_tb" if name == "band_align_tb" else "band_align"] += 1
     assert align_cuda.LAUNCHES == before
 
 
@@ -180,6 +236,9 @@ def test_kernels_launch_on_the_last_card(cuda_device):
                                               device=dev)
     got = align_cuda.band_align_padded(*padded)
     assert torch.equal(got, align_torch.band_align_padded_reference(*padded))
+    args = pair_inputs(random_pairs(10, 2000, 100), dev, overhang_seed=10)
+    assert torch.equal(align_cuda.band_align_pairs(*args),
+                       align_torch.band_align_pairs_reference(*args))
     for g, w in zip(align_cuda.band_align_traceback_padded(*padded),
                     align_torch.band_align_traceback_padded_reference(*padded)):
         assert torch.equal(g, w)

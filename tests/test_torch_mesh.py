@@ -306,7 +306,7 @@ def test_mesh_stage_failure_raises(tmp_path, dataset, monkeypatch, stage):
         # every window is left over, and aligning them fails
         monkeypatch.setattr(port_mesh, "mesh_call_region",
                             lambda live, *a, **k: (lambda: ({}, {}), live))
-        monkeypatch.setattr(align_cuda, "band_align_padded", fail)
+        monkeypatch.setattr(align_cuda, "band_align_pairs", fail)
     monkeypatch.setattr(port_region, "dispatch_alignment_requests",
                         mock.Mock(side_effect=AssertionError("dispatch path")))
     out = str(tmp_path / "fail.vcf")

@@ -5,6 +5,7 @@ log-likelihood matrices must be np.array_equal, and in flank mode every
 pair's flank-corrected score equals the JAX package's scalar path."""
 
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -94,6 +95,38 @@ def test_lane_chunking_and_padding(region_requests, monkeypatch):
     assert sum(len(chunks) for _, _, chunks in pending.groups) > 4
     got = pending.finalize()
     assert align_cuda.LAUNCHES == before
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_k1_chunks_carry_no_pad_pairs(region_requests, jax_requests,
+                                      monkeypatch):
+    """Each K1 launch gets exactly its chunk's pairs (no pad lanes): the
+    index vectors of every call are the group's pair rows of its slice,
+    chunks of at most LANE_BUCKETS[-1] that together cover every pair
+    once; finalize() still equals the JAX package's."""
+    monkeypatch.setenv("PLATYPUS_TPU_NATIVE_ALIGN", "1")
+    want = jax_score.dispatch_alignment_requests(jax_requests).finalize()
+    monkeypatch.setattr(port_score, "LANE_BUCKETS", (16, 64))
+    pairs_kernel = mock.patch.object(align_cuda, "band_align_pairs",
+                                     wraps=align_cuda.band_align_pairs)
+    with pairs_kernel as calls:
+        pending = port_score.dispatch_alignment_requests(region_requests, CPU)
+    live = [r for r in region_requests if r is not None and r.n_pairs()]
+    _mats, rows = port_score._group_matrices(live)
+    sizes = [len(c.args[7]) for c in calls.call_args_list]
+    assert len(sizes) > 4 and max(sizes) == 64
+    assert sum(sizes) == len(rows[0]) == sum(r.n_pairs() for r in live)
+    done = 0
+    for call, (dev, sl) in zip(calls.call_args_list,
+                               pending.groups[0][2]):
+        assert (sl.start, sl.stop) == (done, done + len(dev))
+        for got, values in zip(call.args[4:8], rows):
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), values[sl])
+        done = sl.stop
+    got = pending.finalize()
+    assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
 

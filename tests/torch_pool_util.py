@@ -11,11 +11,15 @@ does what the tests need there:
   (the JAX package) with the name of the process that made it, and blocks
   (and logs) every `import jax`, to PTT_TEST_IMPORT_LOG; with
   PTT_TEST_BLOCK_JAX_PACKAGE=1 it blocks `import platypus_tpu` too;
-* with PTT_TEST_HOST_DELAY=s, the port's run_single_process on the host
-  path (device None: the host workers') waits until the device worker has
-  claimed a region (or for two minutes), then sleeps s seconds before each
-  region it claims, so the device worker's start-up cannot lose it every
-  region;
+* with PTT_TEST_HOST_DELAY=s, the host workers' main pass (the port's
+  run_single_process on device None over the claim source) waits until
+  the device worker has finished its first region (or for two minutes),
+  then sleeps s seconds before each region it claims, so the device
+  worker's start-up cannot lose it every region.  The device worker
+  signals by creating the file PTT_TEST_DEVICE_RELEASED after its first
+  region is written; held by the straggler hook
+  (PLATYPUS_TPU_TEST_DEVICE_DELAY), it creates the file when it starts to
+  stall, since it will not finish one;
 * with PTT_TEST_SERVICE_FAIL=1, the port's launch_fused_inference raises,
   so the device-owner service records a dispatch error.
 """
@@ -71,29 +75,45 @@ if os.environ.get("PTT_TEST_HOST_DELAY"):
     import platypus_tpu_torch.engine.runner as _runner
 
     _run = _runner.run_single_process
+    _RELEASED = os.environ["PTT_TEST_DEVICE_RELEASED"]
 
-    def _slow(regions, delay, source):
-        # Hold the first claim until the device worker has claimed a region
-        # (a region's claim state is then DEVICE, or RESCUED once a host
-        # took it back), then claim at most one region per `delay`.
+    def _release():
+        open(_RELEASED, "a").close()
+
+    def _slow(regions, delay):
+        # Hold the first claim until the device worker has released the
+        # host workers, then claim at most one region per `delay`.
         deadline = time.monotonic() + 120
-        while (source is not None and time.monotonic() < deadline
-               and max(source.state, default=0) < source.DEVICE):
+        while not os.path.exists(_RELEASED) and time.monotonic() < deadline:
             time.sleep(0.05)
         for region in regions:
             time.sleep(delay)
             yield region
 
+    def _releasing(on_done):
+        def done(region):
+            if on_done is not None:
+                on_done(region)
+            _release()
+        return done
+
     def _slow_run(config, regions, output_path, device, *args, **kwargs):
         if device is not None:
+            kwargs["on_region_done"] = _releasing(kwargs.get("on_region_done"))
             return _run(config, regions, output_path, device, *args, **kwargs)
-        delay = float(os.environ["PTT_TEST_HOST_DELAY"])
-        # A host worker passes its RegionClaimSource's mark_done.
-        source = getattr(kwargs.get("on_region_done"), "__self__", None)
-        return _run(config, _slow(regions, delay, source), output_path,
-                    device, *args, **kwargs)
+        if isinstance(regions, _runner.RegionClaimSource):
+            # a host worker's main pass (its rescue pass runs a list)
+            regions = _slow(regions, float(os.environ["PTT_TEST_HOST_DELAY"]))
+        return _run(config, regions, output_path, device, *args, **kwargs)
+
+    def _stalling(regions, delay):
+        for region in regions:
+            _release()
+            time.sleep(delay)
+            yield region
 
     _runner.run_single_process = _slow_run
+    _runner._delayed_regions = _stalling
 
 if os.environ.get("PTT_TEST_SERVICE_FAIL"):
     from platypus_tpu_torch.parallel import batch as _batch
@@ -163,11 +183,15 @@ def fresh_env(tmp_path, **env_set):
     (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
     import_log = tmp_path / "imports.log"
     import_log.write_text("")
+    released = tmp_path / "device_released"
+    if released.exists():
+        released.unlink()
     env = {k: v for k, v in os.environ.items()
            if k not in ("PLATYPUS_TPU_PLATFORM", "JAX_PLATFORMS")}
     env.update(env_set)
     env["PYTHONPATH"] = os.pathsep.join([str(site), REPO])
     env["PTT_TEST_IMPORT_LOG"] = str(import_log)
+    env["PTT_TEST_DEVICE_RELEASED"] = str(released)
     return env, import_log
 
 
