@@ -205,6 +205,83 @@ def k1_variants(build_dir, device):
               f"Mpairs/s", flush=True)
 
 
+def main_chunks(build_dir, device):
+    """The pair entry's two loaders (direct loads, the default build, and
+    staged in shared memory, -DPTT_K1_STAGED=1; both unroll 4) on every K1
+    chunk of the 1 Mb slice's main path: the port's CLI runs the slice in
+    this process and every call of align_cuda.band_align_pairs is kept
+    (the engine's own matrices and index vectors); each chunk is checked
+    bitwise against the plain version under both builds, then timed on
+    the device alone (cuda_ms, launches held), in turns: direct, staged,
+    staged, direct."""
+    import tempfile
+
+    import torch
+
+    from platypus_tpu_torch.ops import align_cuda, align_torch
+
+    workdir = os.path.join(tempfile.gettempdir(), "platypus_tpu_torch_smoke",
+                           f"mb{cs.SLICE_MB:g}")
+    info = cs.build_dataset("slice", workdir, cs.SLICE_MB)
+    calls = []
+    inner = align_cuda.band_align_pairs
+
+    def keep(*args, **kwargs):
+        calls.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    align_cuda.band_align_pairs = keep
+    try:
+        cs.run_port(cs.cli_args(info, f"chr20:1000-{info['length'] + 1000}",
+                                os.path.join(workdir, "probe.vcf")))
+    finally:
+        align_cuda.band_align_pairs = inner
+    src = align_cuda.source("band_align")
+    builds = {"direct": "0", "staged": "1"}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        jobs = {name: pool.submit(
+            nvcc, src, os.path.join(build_dir, f"k1_main_{name}.so"),
+            f"-DPTT_K1_STAGED={st}") for name, st in builds.items()}
+        for name, job in jobs.items():
+            print(f"build: K1 {name}: {job.result()}", flush=True)
+    libs = {}
+    for name in builds:
+        lib = ctypes.CDLL(os.path.join(build_dir, f"k1_main_{name}.so"))
+        for symbol, argtypes in align_cuda.KERNELS["band_align"].entries.items():
+            getattr(lib, symbol).argtypes = argtypes
+        libs[name] = lib
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sums = dict.fromkeys(builds, 0.0)
+    for k, (args, kwargs) in enumerate(calls):
+        B, L1B, L2 = len(args[7]), args[0].shape[1], args[2].shape[1]
+        ge, npr = kwargs.get("gapextend", 3), kwargs.get("nucprior", 2)
+        want = align_torch.band_align_pairs_reference(*args, gapextend=ge,
+                                                      nucprior=npr)
+        out = torch.empty(B, dtype=torch.int32, device=device)
+        runs = {name: (lambda lib=lib: lib.ptt_band_align_pairs(
+            *(t.data_ptr() for t in args), out.data_ptr(), B, L1B, L2, ge,
+            npr, stream)) for name, lib in libs.items()}
+        for name, fn in runs.items():
+            if fn() != 0:
+                raise RuntimeError(f"K1 {name}: launch refused")
+            cs.check_equal(f"main-path chunk {k}, {name}", out, want)
+        times = [(name, cs.cuda_ms(runs[name], 20, hold=True))
+                 for name in ("direct", "staged", "staged", "direct")]
+        for name in builds:
+            sums[name] += min(t for n, t in times if n == name)
+        threads = next(p for p in (128, 64, 32)
+                       if p == 32 or -(-B // p) >= sms)
+        print(f"chunk {k}: {B} pairs, L2={L2}, hap matrix {tuple(args[0].shape)}, "
+              f"{threads}-thread blocks; bitwise under both builds; device ms "
+              "in turns " + ", ".join(f"{n} {t:.6f}" for n, t in times),
+              flush=True)
+    print(f"main-path chunks: {len(calls)} K1 launches, summed (least of each "
+          "chunk's two turns): " + ", ".join(f"{n} {t:.6f} ms"
+                                             for n, t in sums.items()),
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -219,6 +296,10 @@ def main() -> int:
     print(smi, flush=True)
     build_dir = os.path.join(align_cuda.BUILD_DIR, "probe")
     os.makedirs(build_dir, exist_ok=True)
+    if sys.argv[1:] == ["--main-chunks"]:
+        main_chunks(build_dir, torch.device("cuda"))
+        print(smi, flush=True)
+        return 0
     src = os.path.join(build_dir, "issue_probe.cu")
     with open(src, "w") as fh:
         fh.write(PROBE_SRC)
