@@ -19,7 +19,7 @@ the JAX package.  Phases:
    (platypus_tpu_torch/native/src, g++), all started together; prints
    the native library's path, ptxas's registers and spills, and for each
    kernel function the longest straight-line run of its SASS
-   (cuobjdump: K1's unrolled block of 8 steps), beside the operations
+   (cuobjdump: K1's block of 4 steps, K2's step), beside the operations
    bound() counts;
 3. kernel: each CUDA kernel bitwise against its plain torch version on
    the card -- every reference golden (K2: the flank goldens, whose
@@ -426,10 +426,9 @@ def sass_loop(name):
     (`cuobjdump -sass`), the opcodes of the longest straight-line run (no
     branch, no branch target inside) within a loop: K1's block of steps
     without exit captures, or K2's step loop body.  Its steps are its
-    loads / 4 (read, quality, hap, gap-open a step), or, where the block's
-    loads are hoisted out of it (K1's pair entry), K1's unroll
-    (PTT_K1_UNROLL in its source).  Beside the non-memory instructions per
-    step, the DP_OPS_PER_STEP / TB_OPS_PER_STEP that bound() counts."""
+    VIMNMX3 / 16: every step takes m = min(m, i, d) on 8 rows in each of
+    its two phases.  Beside the non-memory instructions per step, the
+    DP_OPS_PER_STEP / TB_OPS_PER_STEP that bound() counts."""
     import collections
     import re
     import shutil
@@ -445,8 +444,6 @@ def sass_loop(name):
         print(f"sass: {name}: not measured (cuobjdump exited "
               f"{proc.returncode})", flush=True)
         return
-    with open(align_cuda.source(name)) as fh:
-        unroll = re.search(r"#define PTT_K1_UNROLL (\d+)", fh.read())
     counted = DP_OPS_PER_STEP if name == "band_align" else TB_OPS_PER_STEP
     for fname, body in zip(sections[1::2], sections[2::2]):
         insts = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
@@ -471,7 +468,11 @@ def sass_loop(name):
                                                 for lo, hi in loops)]
         best = collections.Counter(op for _addr, op in
                                    max(in_loop or runs, key=len))
-        steps = best["LDG"] / 4 or (int(unroll.group(1)) if unroll else 1)
+        steps = best["VIMNMX3"] / 16
+        if not steps:
+            print(f"sass: {name}: {fname}: no VIMNMX3 in the loop's longest "
+                  "run; steps per run not measured", flush=True)
+            continue
         alu = sum(n for op, n in best.items()
                   if op not in ("LDG", "LDS", "STG", "STS", "NOP"))
         short = re.search(r"(band_align\w*?kernel)", fname)
@@ -639,7 +640,6 @@ def check_main_chunk(args, smi):
     old) on the device alone, with the pair entry's bound."""
     import torch
 
-    from platypus_tpu_torch.engine.score import LANE_BUCKETS
     from platypus_tpu_torch.ops import align_cuda, align_torch
 
     mats, idx = args[:4], args[4:]
@@ -647,7 +647,9 @@ def check_main_chunk(args, smi):
     new = align_cuda.band_align_pairs(*args)
     check_equal("main-path chunk", new,
                 align_torch.band_align_pairs_reference(*args))
-    lane = next((b for b in LANE_BUCKETS if B <= b), LANE_BUCKETS[-1])
+    # The old route padded a chunk (at most 16384 pairs) to the first of
+    # the JAX package's lane widths that holds it.
+    lane = next(b for b in (2048, 16384) if B <= b)
     pad = [torch.zeros(lane - B, dtype=torch.int32, device=t.device)
            for t in idx]
     pad[3] += min(8, L2)

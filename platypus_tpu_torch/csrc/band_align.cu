@@ -29,7 +29,8 @@
 // (pair, step) over the 8 wavefront rows (chip_smoke.py DP_OPS_PER_STEP);
 // a pair reads under 450 bytes.  Hopper issues the DPX min forms (VIMNMX,
 // VIMNMX3, VIADDMNMX) at the int32 rate, one warp instruction per two
-// clocks per SM sub-partition (chip_probe_k1.py).  What the design does:
+// clocks per SM sub-partition (PERF.md, K1's findings).  What the design
+// does:
 // * The wavefront's sliding windows (read and quality shifting up, hap
 //   and gap-open shifting down) are circular 8-entry register buffers
 //   indexed by the step modulo 8, a compile-time constant in the
@@ -50,9 +51,9 @@
 // * Each pair entry thread loads the next block's four steps as words
 //   (read, quality; hap and gap-open by funnel shift of two aligned words)
 //   while the current block computes, so their latency hides behind it.
-//   Staging the pair's bytes in shared memory first (PTT_K1_STAGED=1, the
-//   first design) measured slower: at one warp per SM sub-partition the
-//   staging loads' latency is not hidden (chip_probe_k1.py).
+//   Staging the pair's bytes in shared memory first measured slower, on
+//   the main path's own chunks too (PERF.md): at one warp per SM
+//   sub-partition or fewer the staging loads' latency is not hidden.
 // * Block size: the largest of 128, 64 and 32 threads (one pair each)
 //   that still gives at least one block per SM, so a 2048-pair chunk
 //   spreads over 64 SMs instead of 16.
@@ -63,14 +64,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Compile-time variants, for chip_probe_k1.py's measurements only.
-#ifndef PTT_K1_UNROLL
-#define PTT_K1_UNROLL 4
-#endif
-#ifndef PTT_K1_STAGED
-#define PTT_K1_STAGED 0
-#endif
-
 namespace {
 
 constexpr int kLanes = 8;          // align_core.N_LANES
@@ -78,9 +71,7 @@ constexpr int kPosInf = 0x7800;    // align_core.POS_INF
 constexpr int kNChar = 'N';
 constexpr int kMaxThreads = 128;
 constexpr int kMinThreads = 32;
-constexpr int kUnroll = PTT_K1_UNROLL;  // steps per block of the main loop
-static_assert(kUnroll % 4 == 0 && kLanes % kUnroll == 0,
-              "a block is whole words of four steps within the 8 init steps");
+constexpr int kUnroll = 4;  // steps per block of the main loop: one word
 
 // One pair's wavefront.  At the start of a block at step t0, rb / qb hold
 // the read base and 4*quality of step t0 - 1 - j in slot 7 - j (row r of
@@ -196,12 +187,11 @@ __device__ __forceinline__ void dp_block(State& s, const Steps<N>& in, int t0,
 }
 
 // The DP body of both entries.  `ld` gives the padded hap / gap-open
-// columns 0-7 (head) and each block's Steps (fetch); prepare(t0) lets it
-// stage what step t0 needs.  `end` = min(read_len + 8, n_steps): the exit
-// cells of row r lie at step read_len + r, so no later step can change
-// the result.  `lo` (the warp's least end - 8: its shortest read, at most
-// L2) and `hi` (its largest end) are warp-uniform, so every lane takes
-// the same blocks.
+// columns 0-7 (head) and each block's Steps (fetch).  `end` =
+// min(read_len + 8, n_steps): the exit cells of row r lie at step
+// read_len + r, so no later step can change the result.  `lo` (the warp's
+// least end - 8: its shortest read, at most L2) and `hi` (its largest
+// end) are warp-uniform, so every lane takes the same blocks.
 template <class Loader>
 __device__ __forceinline__ int dp_run(Loader& ld, int read_len, int end,
                                       int lo, int hi, int ge, int npr) {
@@ -228,7 +218,6 @@ __device__ __forceinline__ int dp_run(Loader& ld, int read_len, int end,
   }
   Steps<kUnroll> in;
   for (int t0 = kLanes; t0 < hi; t0 += kUnroll) {
-    ld.prepare(t0);
     if (t0 + kUnroll <= lo) {
       ld.template fetch<false>(t0, in);
       dp_block<kUnroll, false, false>(s, in, t0, end, read_len, ge, npr);
@@ -248,8 +237,6 @@ struct PaddedLoader {
   const int32_t* __restrict__ qual4;
   size_t stride;  // B
   int b, last;    // last = n_steps - 1
-
-  __device__ __forceinline__ void prepare(int) {}
 
   __device__ __forceinline__ void head(int* hb, int* gb) const {
 #pragma unroll
@@ -280,7 +267,9 @@ __device__ __forceinline__ uint32_t ldg32(const uint8_t* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
-struct PairRows {
+// Each block's words come from device memory directly, the next block's
+// loaded while the current one computes.
+struct PairLoader {
   const uint8_t* __restrict__ hrow;  // the pair's hap row, gap-open row,
   const uint8_t* __restrict__ grow;  // read row and quality row
   const uint8_t* __restrict__ srow;
@@ -290,6 +279,7 @@ struct PairRows {
   int len1;         // hap columns before the 'N' sentinel
   bool rq_aligned;  // read / quality rows start on 4-byte boundaries
   bool hg_aligned;  // hap / gap-open rows start on 4-byte boundaries
+  uint32_t nr, nq, nh, ng;  // the next block's words
 
   // Four read (or quality) bytes from step s0, `pad` past `valid`.
   __device__ __forceinline__ uint32_t read_word(const uint8_t* row_ptr, int s0,
@@ -350,105 +340,31 @@ struct PairRows {
       }
     }
   }
-};
 
-// Byte k of each word of one four-step group into a block's Steps.
-template <int N>
-__device__ __forceinline__ void unpack(Steps<N>& in, int at, uint32_t r,
-                                       uint32_t q, uint32_t h, uint32_t g) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    in.rd[at + k] = (r >> (8 * k)) & 0xff;
-    in.q4[at + k] = ((q >> (8 * k)) & 0xff) << 2;
-    in.hp[at + k] = (h >> (8 * k)) & 0xff;
-    in.g4[at + k] = ((g >> (8 * k)) & 0xff) << 2;
-  }
-}
-
-#if !PTT_K1_STAGED
-// Each block's words come from device memory directly, the next block's
-// loaded while the current one computes.
-struct PairLoader : PairRows {
-  uint32_t nr[kUnroll / 4], nq[kUnroll / 4], nh[kUnroll / 4], ng[kUnroll / 4];
-
-  __device__ __forceinline__ void begin() {}
-
-  __device__ __forceinline__ void prepare(int) {}
-
+  // The peeled first block (N = 8) loads its own words; a block of the
+  // main loop takes the words loaded by the block before it.  Either
+  // then loads the next block's.
   template <bool CLAMP, int N>
   __device__ __forceinline__ void fetch(int t0, Steps<N>& in) {
 #pragma unroll
     for (int w = 0; w < N / 4; ++w) {
       uint32_t r, q, h, g;
-      if (N != kUnroll || t0 == 0) {
-        load(t0 + 4 * w, r, q, h, g);  // the peeled first block
+      if (N != kUnroll) {
+        load(t0 + 4 * w, r, q, h, g);
       } else {
-        r = nr[w], q = nq[w], h = nh[w], g = ng[w];
+        r = nr, q = nq, h = nh, g = ng;
       }
-      unpack(in, 4 * w, r, q, h, g);
-    }
 #pragma unroll
-    for (int w = 0; w < kUnroll / 4; ++w)
-      load(t0 + N + 4 * w, nr[w], nq[w], nh[w], ng[w]);
+      for (int k = 0; k < 4; ++k) {
+        in.rd[4 * w + k] = (r >> (8 * k)) & 0xff;
+        in.q4[4 * w + k] = ((q >> (8 * k)) & 0xff) << 2;
+        in.hp[4 * w + k] = (h >> (8 * k)) & 0xff;
+        in.g4[4 * w + k] = ((g >> (8 * k)) & 0xff) << 2;
+      }
+    }
+    load(t0 + N, nr, nq, nh, ng);
   }
 };
-#else
-// The pair's bytes staged in shared memory first, a tile of T steps at a
-// time, as 32-bit words [step / 4][pair]: a warp's byte reads of one step
-// and its word stores both touch 32 consecutive words.
-struct PairLoader : PairRows {
-  uint8_t* R;  // this thread's word column in each staged stream
-  uint8_t* Q;
-  uint8_t* H;
-  uint8_t* G;
-  int row;     // bytes per word row: 4 * blockDim.x
-  int T, ts;   // tile length (steps, a multiple of 8), tile start
-  int end;     // steps this pair runs
-
-  __device__ __forceinline__ void stage() {
-    const int te = min(ts + T, end);
-    for (int w = 0; ts + 4 * w < te; ++w) {
-      uint32_t h, g;
-      const uint32_t r = read_word(srow, ts + 4 * w, 0x30303030u);
-      const uint32_t q = read_word(qrow, ts + 4 * w, 0x40404040u);
-      hap_words(ts + 4 * w, h, g);
-      *reinterpret_cast<uint32_t*>(R + w * row) = r;
-      *reinterpret_cast<uint32_t*>(Q + w * row) = q;
-      *reinterpret_cast<uint32_t*>(H + w * row) = h;
-      *reinterpret_cast<uint32_t*>(G + w * row) = g;
-    }
-    for (int w = max(te - ts + 3, 0) >> 2; w < (te + kLanes - ts + 3) >> 2;
-         ++w) {
-      uint32_t h, g;
-      hap_words(ts + 4 * w, h, g);
-      *reinterpret_cast<uint32_t*>(H + w * row) = h;
-      *reinterpret_cast<uint32_t*>(G + w * row) = g;
-    }
-  }
-
-  __device__ __forceinline__ void begin() { stage(); }
-
-  __device__ __forceinline__ void prepare(int t0) {
-    if (t0 >= ts + T) {
-      ts = t0;
-      stage();
-    }
-  }
-
-  template <bool CLAMP, int N>
-  __device__ __forceinline__ void fetch(int t0, Steps<N>& in) const {
-    const int i0 = t0 - ts;  // step t0's index in the tile, a multiple of 4
-#pragma unroll
-    for (int w = 0; w < N / 4; ++w) {
-      const int off = ((i0 >> 2) + w) * row;
-      unpack(in, 4 * w, *reinterpret_cast<const uint32_t*>(R + off),
-             *reinterpret_cast<const uint32_t*>(Q + off),
-             *reinterpret_cast<const uint32_t*>(H + off + 2 * row),
-             *reinterpret_cast<const uint32_t*>(G + off + 2 * row));
-    }
-  }
-};
-#endif
 
 __global__ void __launch_bounds__(kMaxThreads)
 band_align_kernel(const int32_t* __restrict__ hap,   // [n_steps + 8, B]
@@ -481,7 +397,7 @@ band_align_pairs_kernel(const uint8_t* __restrict__ hap_mat,   // [H, L1B]
                         const int32_t* __restrict__ pair_seg,  // [B]
                         const int32_t* __restrict__ rlen,      // [B]
                         int32_t* __restrict__ out,             // [B]
-                        int B, int L1B, int L2, int T, int ge, int npr,
+                        int B, int L1B, int L2, int ge, int npr,
                         int rq_aligned, int hg_aligned) {
   // As above, a lane past B mirrors pair B-1; no block-wide barrier.
   const int lane_b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -500,20 +416,6 @@ band_align_pairs_kernel(const uint8_t* __restrict__ hap_mat,   // [H, L1B]
   ld.len1 = read_len + 15;
   ld.rq_aligned = rq_aligned != 0;
   ld.hg_aligned = hg_aligned != 0;
-#if PTT_K1_STAGED
-  extern __shared__ uint32_t staged[];
-  const int P = blockDim.x;
-  uint8_t* base = reinterpret_cast<uint8_t*>(staged) + 4 * threadIdx.x;
-  ld.R = base;
-  ld.Q = base + T * P;
-  ld.H = base + 2 * T * P;
-  ld.G = base + (3 * T + kLanes) * P;
-  ld.row = 4 * P;
-  ld.T = T;
-  ld.ts = 0;
-  ld.end = end;
-#endif
-  ld.begin();
   const int lo = __reduce_min_sync(0xffffffffu, end - kLanes);
   const int hi = __reduce_max_sync(0xffffffffu, end);
   const int score = dp_run(ld, read_len, end, lo, hi, ge, npr);
@@ -555,28 +457,16 @@ extern "C" int ptt_band_align_pairs(const void* hap_mat, const void* go_mat,
                                     void* out, int B, int L1B, int L2,
                                     int gapextend, int nucprior, void* stream) {
   const int P = threads_for(B);
-  // The staged variant's tile: T steps of read / quality, T + 8 hap /
-  // gap-open columns per pair, within 96 KB a block.
-  int T = (L2 + 2 * kLanes - 1) / kLanes * kLanes;
-  const int t_max = (96 * 1024 / P - 2 * kLanes) / 4 / kLanes * kLanes;
-  if (T > t_max) T = t_max;
-  const int smem = PTT_K1_STAGED ? P * (4 * T + 2 * kLanes) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        band_align_pairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int rq_aligned = L2 % 4 == 0 && (uintptr_t)seq_mat % 4 == 0 &&
                          (uintptr_t)qual_mat % 4 == 0;
   const int hg_aligned = L1B % 4 == 0 && L1B >= 4 &&
                          (uintptr_t)hap_mat % 4 == 0 &&
                          (uintptr_t)go_mat % 4 == 0;
-  band_align_pairs_kernel<<<(B + P - 1) / P, P, smem, (cudaStream_t)stream>>>(
+  band_align_pairs_kernel<<<(B + P - 1) / P, P, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)hap_mat, (const uint8_t*)go_mat,
       (const uint8_t*)seq_mat, (const uint8_t*)qual_mat,
       (const int32_t*)pair_hap, (const int32_t*)pair_read,
       (const int32_t*)pair_seg, (const int32_t*)rlen, (int32_t*)out, B, L1B,
-      L2, T, 4 * gapextend, 4 * nucprior, rq_aligned, hg_aligned);
+      L2, 4 * gapextend, 4 * nucprior, rq_aligned, hg_aligned);
   return (int)cudaGetLastError();
 }

@@ -60,9 +60,9 @@ from ..utils.observability import GLOBAL_METRICS as metrics
 
 _N_CHAR = ord("N")
 
-# The JAX package's lane widths of a K1 launch.  The port launches K1 at
-# each chunk's own pair count; the largest width caps a chunk (K1 and K2).
-LANE_BUCKETS = (2048, 16384)
+# Most pairs in one K1 or K2 launch (a chunk); K1 launches at each
+# chunk's own pair count.
+CHUNK_PAIRS = 16384
 
 # Bound on the int32 label block [n_steps*8, B] of one K2 launch; a read
 # bucket whose largest lane chunk would exceed it is cut into smaller chunks.
@@ -843,12 +843,33 @@ def _group_matrices(group):
     return (hap_mat, go_mat, seq_mat, qual_mat), pairs
 
 
-def _pair_index(pairs, sl: slice, device):
+def check_pair_rows(idx: np.ndarray, n_haps: int, n_reads: int,
+                    L2: int) -> None:
+    """Raise ValueError unless the [4, n] pair hap / read / segment /
+    read-length rows index inside [n_haps, *] hap and [n_reads, L2] read
+    matrices: 0 <= hap < n_haps, 0 <= read < n_reads, segment >= 0 and
+    0 <= read length <= L2.  K1's pair entry reads the matrices at these
+    offsets unchecked, so callers check the rows on the host, before the
+    upload."""
+    if idx.shape[1] == 0:
+        return
+    for name, values, hi in zip(("pair_hap", "pair_read", "pair_seg",
+                                 "read_len"), idx,
+                                (n_haps - 1, n_reads - 1, None, L2)):
+        lo_v, hi_v = int(values.min()), int(values.max())
+        if lo_v < 0 or (hi is not None and hi_v > hi):
+            raise ValueError(f"{name} spans [{lo_v}, {hi_v}], outside "
+                             f"[0, {'inf' if hi is None else hi}]")
+
+
+def _pair_index(mats, pairs, sl: slice, device):
     """[4, n] int32 pair hap / read / segment / read-length rows of the
-    chunk's n pairs on `device` (no pad pairs)."""
+    chunk's n pairs on `device` (no pad pairs), checked against the
+    matrices' shapes first."""
     import torch
 
     idx = np.stack([values[sl] for values in pairs]).astype(np.int32)
+    check_pair_rows(idx, mats[0].shape[0], mats[2].shape[0], mats[2].shape[1])
     return torch.from_numpy(idx).to(device)
 
 
@@ -911,19 +932,19 @@ def dispatch_alignment_requests(
             # K2 chunks hold exactly their pairs (no lane padding: the
             # label block is the transfer) and keep the block under
             # FLANK_BP_BYTES.
-            lane = max(1, min(LANE_BUCKETS[-1],
+            lane = max(1, min(CHUNK_PAIRS,
                               FLANK_BP_BYTES // ((L2 + 8) * N_LANES * 4)))
             for done in range(0, total, lane):
                 sl = slice(done, min(total, done + lane))
-                padded = gather_pad(*mats, *_pair_index(pairs, sl, device))
+                padded = gather_pad(*mats, *_pair_index(mats, pairs, sl, device))
                 chunks.append((band_align_traceback_padded(
                     *padded, gapextend=gapextend, nucprior=nucprior), sl))
             pending.flank_groups.append((group, chunks))
             continue
-        # K1 chunks hold exactly their pairs, at most LANE_BUCKETS[-1].
-        for done in range(0, total, LANE_BUCKETS[-1]):
-            sl = slice(done, min(total, done + LANE_BUCKETS[-1]))
-            dev = band_align_pairs(*mats, *_pair_index(pairs, sl, device),
+        # K1 chunks hold exactly their pairs, at most CHUNK_PAIRS.
+        for done in range(0, total, CHUNK_PAIRS):
+            sl = slice(done, min(total, done + CHUNK_PAIRS))
+            dev = band_align_pairs(*mats, *_pair_index(mats, pairs, sl, device),
                                    gapextend=gapextend, nucprior=nucprior)
             chunks.append((dev, sl))
         pending.groups.append((group, np.empty(total, np.int64), chunks))

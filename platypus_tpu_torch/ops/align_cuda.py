@@ -214,7 +214,9 @@ def band_align_pairs(hap_mat: torch.Tensor, go_mat: torch.Tensor,
     [H, L1B], read and quality [A, L2]) and int32 [B] pair rows (hap row,
     read row, segment start >= 0, read length <= L2) -> [B] int32 phred,
     each pair gathered and sentinel-padded as align_torch.gather_pad does.
-    Launches exactly B pairs."""
+    Launches exactly B pairs.  The kernel does not bound-check the pair
+    rows: callers check them on the host before the upload
+    (engine/score.check_pair_rows)."""
     mats = (hap_mat, go_mat, seq_mat, qual_mat)
     index = (pair_hap, pair_read, pair_seg, read_len)
     dev = read_len.device

@@ -37,7 +37,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..engine.score import flank_pair_scores, window_loglik_from_pair_scores
+from ..engine.score import (check_pair_rows, flank_pair_scores,
+                            window_loglik_from_pair_scores)
 from ..ops.align_cuda import band_align_padded, band_align_pairs
 from ..ops.kmer import HASH_NUCS
 from ..ops.likelihood import genotype_index_pairs
@@ -272,6 +273,7 @@ def _launch_group(g: dict, mesh: DeviceMesh, use_cap: bool, use_flank: bool,
             real = share[:n_real]
             idx = np.stack([g[k][real] for k in ("pair_hap", "pair_read",
                                                  "pair_seg", "pair_len")])
+            check_pair_rows(idx, g["hap_mat"].shape[0], *g["seq_mat"].shape)
             per_lane = len(share) // lane
             pieces = []
             for c, dev in enumerate(row_devs):

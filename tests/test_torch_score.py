@@ -86,10 +86,10 @@ def test_finalize_matches_jax_package(region_requests, jax_requests, jax_align,
 
 
 def test_lane_chunking_and_padding(region_requests, monkeypatch):
-    """Small lane buckets force many chunks and a padded last chunk: the
+    """A small chunk cap forces many chunks and a short last chunk: the
     matrices must not change, and no kernel launch is counted on CPU."""
     want = port_score.dispatch_alignment_requests(region_requests, CPU).finalize()
-    monkeypatch.setattr(port_score, "LANE_BUCKETS", (16, 64))
+    monkeypatch.setattr(port_score, "CHUNK_PAIRS", 64)
     before = dict(align_cuda.LAUNCHES)
     pending = port_score.dispatch_alignment_requests(region_requests, CPU)
     assert sum(len(chunks) for _, _, chunks in pending.groups) > 4
@@ -103,11 +103,11 @@ def test_k1_chunks_carry_no_pad_pairs(region_requests, jax_requests,
                                       monkeypatch):
     """Each K1 launch gets exactly its chunk's pairs (no pad lanes): the
     index vectors of every call are the group's pair rows of its slice,
-    chunks of at most LANE_BUCKETS[-1] that together cover every pair
-    once; finalize() still equals the JAX package's."""
+    chunks of at most CHUNK_PAIRS that together cover every pair once;
+    finalize() still equals the JAX package's."""
     monkeypatch.setenv("PLATYPUS_TPU_NATIVE_ALIGN", "1")
     want = jax_score.dispatch_alignment_requests(jax_requests).finalize()
-    monkeypatch.setattr(port_score, "LANE_BUCKETS", (16, 64))
+    monkeypatch.setattr(port_score, "CHUNK_PAIRS", 64)
     pairs_kernel = mock.patch.object(align_cuda, "band_align_pairs",
                                      wraps=align_cuda.band_align_pairs)
     with pairs_kernel as calls:
@@ -129,6 +129,35 @@ def test_k1_chunks_carry_no_pad_pairs(region_requests, jax_requests,
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("row,value", [(0, -1), (0, 4), (1, -1), (1, 6),
+                                       (2, -1), (3, -1), (3, 101)],
+                         ids=["hap<0", "hap>=H", "read<0", "read>=A",
+                         "seg<0", "len<0", "len>L2"])
+def test_check_pair_rows_rejects_rows_outside_the_matrices(row, value):
+    """K1's pair entry reads the matrices unchecked, so the pair rows are
+    checked on the host first: [4, H=4 haps, A=6 reads, L2=100]."""
+    idx = np.array([[0, 3], [0, 5], [0, 900], [1, 100]], np.int32)
+    port_score.check_pair_rows(idx, 4, 6, 100)
+    idx[row, 1] = value
+    with pytest.raises(ValueError):
+        port_score.check_pair_rows(idx, 4, 6, 100)
+
+
+def test_dispatch_rejects_a_segment_before_the_hap_row(region_requests):
+    """A negative segment start in one request fails the dispatch on the
+    host, before any upload or launch."""
+    k = next(i for i, r in enumerate(region_requests)
+             if r is not None and r.n_pairs())
+    bad = list(region_requests)
+    seg = bad[k].pair_seg.copy()
+    seg[0] = -1
+    bad[k] = dataclasses.replace(bad[k], pair_seg=seg)
+    before = dict(align_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="pair_seg"):
+        port_score.dispatch_alignment_requests(bad, CPU)
+    assert align_cuda.LAUNCHES == before
 
 
 def test_host_path_matches_jax_package(region_requests, jax_requests):
