@@ -14,26 +14,27 @@ the JAX package.  Phases:
 2. build: every kernel library of align_cuda.KERNELS -- K1, the
    banded-alignment DP (csrc/band_align.cu: its pair entry, which gathers
    and pads its pairs from the deduplicated matrices, and its padded
-   entry), and K2, its traceback mode (csrc/band_align_tb.cu) -- one nvcc
-   each for sm_90a, and the port's native host library
-   (platypus_tpu_torch/native/src, g++), all started together; prints
-   the native library's path, ptxas's registers and spills, and for each
-   kernel function the longest straight-line run of its SASS
-   (cuobjdump: K1's block of 4 steps, K2's step), beside the operations
-   bound() counts;
+   entry), and K2, its traceback mode (csrc/band_align_tb.cu: one pair
+   entry, the same gather and pad, 16-bit label words; both include
+   csrc/pair_loader.cuh) -- one nvcc each for sm_90a, and the port's
+   native host library (platypus_tpu_torch/native/src, g++), all started
+   together; prints the native library's path, ptxas's registers and
+   spills, and for each kernel function the longest straight-line run of
+   its SASS (cuobjdump: each kernel's block of 4 steps), beside the
+   operations bound() counts;
 3. kernel: each CUDA kernel bitwise against its plain torch version on
    the card -- every reference golden (K2: the flank goldens, whose
    alignments the host backtrace must reproduce from K2's label words;
-   K1's pair entry: through identity indices), main-path shapes (B =
+   the pair entries: through identity indices), main-path shapes (B =
    16384, 2048 and 2000 pairs at read lengths 100 and 128, mixed
-   lengths, 'N' bases) and, for the pair entry, overhanging segments and
-   B = 1, 127 and 2047 -- then timed with CUDA events at L2=100 (K1's
-   pair entry at B=16384 and 2048, its padded entry and K2 at 16384; on
-   the device alone, its launches queued behind a sleep kernel, and back
-   to back as the host launches them) against its plain version, with
-   its bound: the larger of the bytes it must move over the card's
-   memory rate and its int32 operations over the card's int32 rate
-   (bound());
+   lengths, 'N' bases) and, for the pair entries, overhanging segments
+   and B = 1, 127 and 2047 (K2 also a batch of tied exit cells:
+   tie_pairs) -- then timed with CUDA events at L2=100 (the pair
+   entries at B=16384 and 2048, K1's padded entry at 16384; on the
+   device alone, its launches queued behind a sleep kernel, and back to
+   back as the host launches them) against its plain version, with its
+   bound: the larger of the bytes it must move over the card's memory
+   rate and its int32 operations over the card's int32 rate (bound());
 4. slice: `platypus_tpu_torch.cli.main(["callVariants", ...])` on cuda
    over a synthetic 1 Mb, 30x, 100 bp dataset (ten 100 kb regions; built
    by tests/test_torch_smoke_data.py in a child process, as is the HLA
@@ -52,7 +53,10 @@ the JAX package.  Phases:
    like time, the port's CLI also runs in a fresh interpreter, as the
    reference does: both walls include interpreter start and imports;
 6. flank: the whole slice again with --calculateFlankScore=1, which must
-   launch K2 and lower some pair scores by the flank penalty; then
+   launch K2 and lower some pair scores by the flank penalty; its K2
+   launch sizes are recorded and its first region's largest K2 chunk is
+   kept: K2 bitwise on it against its plain version, then timed on the
+   device alone with its bound; then
    chr20:1000-21000 with it, in this process and in a
    fresh interpreter, byte-identical to the CPU-pinned reference (whose
    scalar flank path takes ~6 ms per pair, hence the smaller region);
@@ -156,15 +160,17 @@ INT32_PER_SM_CLOCK = 64
 #   the 'N' cost of the step's one new haplotype base, a compare and a
 #     select (the other rows keep theirs, shifted): 2.
 DP_OPS_PER_STEP = 77 + 78 + 2
-# K2 adds, per row and step, the packed label word of both phases (the m1
-# field masked; the five others shifted, masked and merged, a shift and a
-# LOP3 each: 11) and the six stamps (a LOP3 each), less the 3 + 3 of the
-# two rows forced to POS_INF (d1 row 0 and i2 row 7), whose fields and
-# stamps are constants.
-TB_OPS_PER_STEP = DP_OPS_PER_STEP + 8 * 17 - 6
+# K2 adds, per row and step, the packed 16-bit label word of both phases
+# and the six stamps (a LOP3 each).  The word takes the M field of the
+# even phase as it stands and the five fields above it each shifted into
+# place and merged under a mask, a shift and a LOP3 each: 10 (the mask of
+# the M field is the first merge's).  Less 2 + 2 for the two rows forced
+# to POS_INF (d1 row 0 and i2 row 7), whose shifts and stamps are
+# constants (their merges stay): 8 * 16 - 4 = 124.
+TB_OPS_PER_STEP = DP_OPS_PER_STEP + 8 * 16 - 4
 # Per pair, once: the init row of both phases (16 selects); K1's exit-row
 # mins (8 rows x 2 phases) and its final add and shift; K2's exit captures
-# (16 selects), its first-strict-minimum over the rows (3 for row 0, 6 for
+# (16 selects), its first strict minimum over them (3 for row 0, 6 for
 # each of rows 1-7) and the score's and index's two ops each.
 OPS_PER_PAIR = {"band_align": 16 + 16 + 2, "band_align_tb": 16 + 16 + 45 + 4}
 # Clock cycles a sleep kernel holds the stream before a timed run (about
@@ -307,6 +313,23 @@ def random_pairs(seed, B, L2):
     return hap, go, read, qual, rl
 
 
+def tie_pairs(seed, B, L2):
+    """Homopolymer pairs whose exit cells tie: reads of 'A' against haps of
+    'A' behind 0-11 'C's, so the best score recurs on several rows and in
+    both phases, and the first strict minimum falls on every row and
+    phase across the batch."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hap = np.full((B, L2 + 15), ord("A"), np.int32)
+    hap[np.arange(L2 + 15)[None, :] < rng.integers(0, 12, B)[:, None]] = ord("C")
+    go = np.full((B, L2 + 15), 40, np.int32)
+    read = np.full((B, L2), ord("A"), np.int32)
+    qual = np.full((B, L2), 30, np.int32)
+    rl = rng.integers(L2 // 2, L2 + 1, B).astype(np.int32)
+    return hap, go, read, qual, rl
+
+
 def cuda_ms(fn, iters, hold=False):
     """Mean milliseconds of fn() on the current stream (CUDA events).  With
     `hold`, a sleep kernel holds the stream while the host queues all
@@ -424,8 +447,8 @@ def bound(name, read_len, n_steps, n_bytes):
 def sass_loop(name):
     """Print, for each kernel function in library `name`'s SASS
     (`cuobjdump -sass`), the opcodes of the longest straight-line run (no
-    branch, no branch target inside) within a loop: K1's block of steps
-    without exit captures, or K2's step loop body.  Its steps are its
+    branch, no branch target inside) within a loop: each kernel's block
+    of steps without exit captures.  Its steps are its
     VIMNMX3 / 16: every step takes m = min(m, i, d) on 8 rows in each of
     its two phases.  Beside the non-memory instructions per step, the
     DP_OPS_PER_STEP / TB_OPS_PER_STEP that bound() counts."""
@@ -592,22 +615,23 @@ def check_kernel(device):
 
 
 class ChunkRecorder:
-    """While entered: the size of every call of K1's pair entry, and the
-    inputs of the largest call of the first region dispatch that calls it
-    (the engine's own matrices and index vectors, kept by reference).
-    Wraps align_cuda.band_align_pairs and the region pipeline's
-    dispatch_alignment_requests; launches are counted by the wrapper
-    inside, as always."""
+    """While entered: the size of every call of the pair entry `wrapper`
+    of align_cuda (K1's band_align_pairs or K2's
+    band_align_traceback_pairs), and the inputs of the largest call of the
+    first region dispatch that calls it (the engine's own matrices and
+    index vectors, kept by reference).  Wraps the wrapper and the region
+    pipeline's dispatch_alignment_requests; launches are counted by the
+    wrapper inside, as always."""
 
-    def __init__(self):
+    def __init__(self, wrapper="band_align_pairs"):
         from platypus_tpu_torch.engine import region
         from platypus_tpu_torch.ops import align_cuda
 
         self.sizes, self.first = [], None
         self._dispatches, self._first_dispatch = 0, None
-        self._region, self._align = region, align_cuda
+        self._region, self._align, self._name = region, align_cuda, wrapper
         self._dispatch = region.dispatch_alignment_requests
-        self._pairs = align_cuda.band_align_pairs
+        self._pairs = getattr(align_cuda, wrapper)
 
     def __enter__(self):
         def dispatch(*args, **kwargs):
@@ -624,12 +648,12 @@ class ChunkRecorder:
             return self._pairs(*args, **kwargs)
 
         self._region.dispatch_alignment_requests = dispatch
-        self._align.band_align_pairs = pairs
+        setattr(self._align, self._name, pairs)
         return self
 
     def __exit__(self, *exc):
         self._region.dispatch_alignment_requests = self._dispatch
-        self._align.band_align_pairs = self._pairs
+        setattr(self._align, self._name, self._pairs)
 
 
 def check_main_chunk(args, smi):
@@ -683,50 +707,101 @@ def check_main_chunk(args, smi):
           f"{bound_ms / new_ms:.1%} of it", flush=True)
 
 
-def check_tb_kernel(device):
-    """Phase 3 for K2: score, exit index and the whole label block bitwise
-    equal to the plain traceback DP on the flank goldens and main-path
-    shapes, the goldens' alignments recovered from K2's output by the host
-    backtrace, then both timed.  Returns the report fields."""
-    import torch
+def check_flank_chunk(args, smi):
+    """The captured flank chunk: K2's pair entry bitwise against its plain
+    version on it (score, exit index, labels), then timed on the device
+    alone with its bound."""
+    from platypus_tpu_torch.ops import align_cuda
 
+    mats, idx = args[:4], args[4:]
+    B, L2 = len(idx[3]), mats[2].shape[1]
+    check_tb_equal("flank chunk", args)
+    ms = min(cuda_ms(lambda: align_cuda.band_align_traceback_pairs(*args), 20,
+                     hold=True) for _ in range(2))
+    bound_ms, bound_by = bound("band_align_tb", idx[3], L2 + 8,
+                               tb_bytes(mats, idx))
+    print(f"flank chunk on {smi}: {B} pairs (L2={L2}, hap matrix "
+          f"{tuple(mats[0].shape)}, read matrix {tuple(mats[2].shape)}), K2's "
+          f"pair entry bitwise equal to its plain version; {ms:.6f} ms on the "
+          f"device (least of two runs of 20); bound {bound_ms:.6f} ms "
+          f"({bound_by}), {bound_ms / ms:.1%} of it", flush=True)
+
+
+def tb_bytes(mats, index):
+    """Bytes K2's pair entry must move on these inputs: pair_bytes (the
+    matrix bytes, index rows and the int32 score) plus the int32 exit
+    index and the int16 label block [(L2+8)*8, B]."""
+    B, L2 = len(index[3]), mats[2].shape[1]
+    return pair_bytes(mats, index) + 4 * B + 2 * (L2 + 8) * 8 * B
+
+
+def check_tb_equal(what, args):
+    """K2's pair entry against its plain version on `args`: score, exit
+    index and the whole label block bitwise.  Returns the kernel's
+    outputs."""
+    from platypus_tpu_torch.ops import align_cuda, align_torch
+
+    got = align_cuda.band_align_traceback_pairs(*args)
+    want = align_torch.band_align_traceback_pairs_reference(*args)
+    for name, g, w in zip(("score", "idx", "labels"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what}: {name} is {g.dtype} {tuple(g.shape)}"
+                                 f", its plain version {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        check_equal(f"{what}: {name}", g, w)
+    return got
+
+
+def check_tb_kernel(device):
+    """Phase 3 for K2's pair entry: score, exit index and the whole label
+    block bitwise equal to its plain version (gather/pad + the plain
+    traceback DP) on the flank goldens through identity indices (whose
+    alignments and flank scores the host backtrace must then recover from
+    the kernel's output), the main-path shapes, overhanging segments, B =
+    1, 127 and 2047 and a batch of tied exit cells; then timed at B=16384
+    and 2048, L2=100.  Returns the report fields at B=16384."""
     from platypus_tpu_torch.ops import align_cuda, align_torch
 
     golden_cases, golden_inputs = flank_goldens()
-    cases = [golden_inputs] + [random_pairs(100 + seed, B, L2)
-                               for seed, (B, L2) in enumerate(MAIN_SHAPES)]
-    max_err = 0
+    cases = [("flank goldens", pair_inputs(golden_inputs, device))]
+    cases += [(f"B={B} L2={L2}", pair_inputs(
+        random_pairs(100 + seed, B, L2), device, width=-(-(L2 + 15) // 32) * 32))
+        for seed, (B, L2) in enumerate(MAIN_SHAPES)]
+    cases += [(f"overhang, width {width}", pair_inputs(
+        random_pairs(41, 2000, 128), device, overhang_seed=41, width=width))
+        for width in (None, 160)]
+    cases += [(f"B={B}", pair_inputs(random_pairs(60 + B, B, 100), device,
+                                     width=128)) for B in (1, 127, 2047)]
+    cases += [(f"ties L2={L2}", pair_inputs(tie_pairs(70 + L2, 2000, L2),
+                                            device, width=L2 + 28))
+              for L2 in (100, 128)]
     n_pairs = 0
-    for k, inputs in enumerate(cases):
-        padded = align_torch.pad_alignment_inputs(*inputs, device=device)
-        got = align_cuda.band_align_traceback_padded(*padded)
-        want = align_torch.band_align_traceback_padded_reference(*padded)
-        torch.cuda.synchronize()
-        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-        max_err = max(max_err, err)
-        n_pairs += got[0].numel()
-        if err:
-            raise AssertionError(f"traceback kernel != plain DP on case {k} "
-                                 f"(B={got[0].numel()}): max |diff| {err}")
-        if k == 0:
+    for what, args in cases:
+        got = check_tb_equal(f"K2 pair entry, {what}", args)
+        n_pairs += len(args[7])
+        if what == "flank goldens":
             bad = flank_golden_mismatches(golden_cases,
                                           *(t.cpu().numpy() for t in got))
             if bad:
-                raise AssertionError(f"traceback kernel: flank goldens {bad} "
-                                     "not reproduced by the host backtrace")
-    print(f"kernel K2: score, idx and bp bitwise equal to the plain traceback "
-          f"DP on {len(cases)} batches, {n_pairs} pairs (flank goldens + "
-          f"main-path shapes); {len(golden_cases)} flank goldens' alignments "
-          f"and flank scores reproduced", flush=True)
+                raise AssertionError(f"K2: flank goldens {bad} not reproduced "
+                                     "by the host backtrace")
+    print(f"kernel K2: pair entry's score, idx and 16-bit labels bitwise "
+          f"equal to gather/pad + the plain traceback DP on {len(cases)} "
+          f"batches, {n_pairs} pairs (flank goldens through identity indices, "
+          f"main-path shapes, overhanging segments, B = 1, 127, 2047, tied "
+          f"exit cells); {len(golden_cases)} flank goldens' alignments and "
+          f"flank scores reproduced", flush=True)
 
-    padded = align_torch.pad_alignment_inputs(*random_pairs(99, TIMED_B, TIMED_L2),
-                                              device=device)
-    outputs = align_cuda.band_align_traceback_padded(*padded)
-    return dict(max_abs_err=max_err, **time_kernel(
-        "kernel K2", "band_align_tb",
-        lambda: align_cuda.band_align_traceback_padded(*padded),
-        lambda: align_torch.band_align_traceback_padded_reference(*padded),
-        padded[4], TIMED_L2 + 8, tensor_bytes((*padded, *outputs))))
+    reports = {}
+    for B in (TIMED_B, 2048):
+        args = pair_inputs(random_pairs(99, B, TIMED_L2), device, width=128)
+        reports[B] = time_kernel(
+            "kernel K2 (pair entry)", "band_align_tb",
+            lambda args=args: align_cuda.band_align_traceback_pairs(*args),
+            lambda args=args: align_torch.band_align_traceback_pairs_reference(
+                *args),
+            args[7], TIMED_L2 + 8, tb_bytes(args[:4], args[4:]))
+    return dict(max_abs_err=0, **reports[TIMED_B])
 
 
 def build_dataset(kind, workdir, *args):
@@ -1373,7 +1448,8 @@ def main() -> int:
     # region byte for byte against the reference's scalar flank path
     flank = ("--calculateFlankScore=1",)
     flank_out = os.path.join(info["workdir"], "port_flank.vcf")
-    wall, counts = run_port(cli_args(info, region, flank_out, flank))
+    with ChunkRecorder("band_align_traceback_pairs") as flank_recorder:
+        wall, counts = run_port(cli_args(info, region, flank_out, flank))
     errors.check("flank slice")
     launches["band_align_tb"] = counts["band_align_tb"]
     if counts["band_align_tb"] <= 0 or counts["flank_pairs_lowered"] <= 0:
@@ -1384,6 +1460,11 @@ def main() -> int:
           f"launches, {counts['band_align']} K1 launches, "
           f"{counts['flank_pairs_lowered']} pair scores lowered by the flank "
           f"penalty, {len(data_lines(flank_out))} VCF data lines", flush=True)
+    print(f"flank: K2 launch sizes (pairs) {flank_recorder.sizes}", flush=True)
+    if flank_recorder.first is None:
+        raise AssertionError("flank: no call of K2's pair entry recorded")
+    check_flank_chunk(flank_recorder.first, smi)
+    errors.check("flank chunk")
     wall, counts, cli_wall, ref_wall, n_lines = compare_three(
         "--calculateFlankScore=1", info["workdir"], "flank_region",
         lambda out: cli_args(info, FLANK_REGION, out, flank))

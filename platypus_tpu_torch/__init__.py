@@ -3,8 +3,8 @@
 The JAX package `platypus_tpu` stays the reference.  This package runs the
 same caller on an NVIDIA GPU: the banded pair-alignment DP is a hand-written
 CUDA C++ kernel for sm_90a (csrc/band_align.cu; csrc/band_align_tb.cu for
-its traceback mode), the gather/pad and the fused GL -> EM -> posterior
-inference are plain torch.
+its traceback mode), which gathers and pads its pairs itself; the fused
+GL -> EM -> posterior inference is plain torch.
 
 The package carries its own host layers -- config, io, candidates, models,
 the host ops (align_core, kmer, likelihood), vcfout, heads and the native

@@ -20,10 +20,12 @@ on the device given:
 
 * a torch device: per read-length group the deduplicated haplotype / read
   matrices upload once, and each chunk of pairs runs the banded DP on
-  the device -- K1's pair entry (ops/align_cuda.band_align_pairs), which
-  gathers and pads its pairs itself, for plain scores; gather/pad, then
-  K2 (the DP's traceback mode), for --calculateFlankScore requests, whose
-  per-pair backtrace and flank penalty then run on the host.  Results stay on the device until copy_to_host() fetches them;
+  the device through a pair entry that gathers and pads its pairs
+  itself: K1's (ops/align_cuda.band_align_pairs) for plain scores, K2's
+  (band_align_traceback_pairs, the DP's traceback mode, 16-bit label
+  words) for --calculateFlankScore requests, whose per-pair backtrace and
+  flank penalty then run on the host.  Results stay on the device until
+  copy_to_host() fetches them;
 * None, the host path of a pool's host worker: the native C++ 8-lane
   wavefront (bit-identical scores) for plain requests and the scalar
   traceback (_scalar_flank_scores) for flank requests.  torch is never
@@ -64,8 +66,9 @@ _N_CHAR = ord("N")
 # chunk's own pair count.
 CHUNK_PAIRS = 16384
 
-# Bound on the int32 label block [n_steps*8, B] of one K2 launch; a read
-# bucket whose largest lane chunk would exceed it is cut into smaller chunks.
+# Bound on the label block [n_steps*8, B] of one K2 launch, 2 bytes a
+# label word (int16); a read bucket whose pairs would exceed it is cut
+# into smaller chunks.
 FLANK_BP_BYTES = 256 << 20
 
 
@@ -848,9 +851,9 @@ def check_pair_rows(idx: np.ndarray, n_haps: int, n_reads: int,
     """Raise ValueError unless the [4, n] pair hap / read / segment /
     read-length rows index inside [n_haps, *] hap and [n_reads, L2] read
     matrices: 0 <= hap < n_haps, 0 <= read < n_reads, segment >= 0 and
-    0 <= read length <= L2.  K1's pair entry reads the matrices at these
-    offsets unchecked, so callers check the rows on the host, before the
-    upload."""
+    0 <= read length <= L2.  K1's and K2's pair entries read the matrices
+    at these offsets unchecked, so callers check the rows on the host,
+    before the upload."""
     if idx.shape[1] == 0:
         return
     for name, values, hi in zip(("pair_hap", "pair_read", "pair_seg",
@@ -911,13 +914,12 @@ def dispatch_alignment_requests(
         return pending
     import torch
 
-    from ..ops.align_cuda import band_align_pairs, band_align_traceback_padded
-    from ..ops.align_torch import gather_pad
+    from ..ops.align_cuda import band_align_pairs, band_align_traceback_pairs
 
     # Group by (flank mode, read-length bucket); concatenate pair rows
     # across windows.  Each group's matrices upload once; per chunk only
-    # four index vectors ship: K1 gathers and pads its pairs itself, K2's
-    # are gathered and padded on the device first.
+    # four index vectors ship, and K1 or K2 gathers and pads its pairs
+    # itself.
     by_group: dict = {}
     for req in live:
         key = (bool(req.calculate_flank_score), req.sub_seq.shape[1])
@@ -933,12 +935,12 @@ def dispatch_alignment_requests(
             # label block is the transfer) and keep the block under
             # FLANK_BP_BYTES.
             lane = max(1, min(CHUNK_PAIRS,
-                              FLANK_BP_BYTES // ((L2 + 8) * N_LANES * 4)))
+                              FLANK_BP_BYTES // ((L2 + 8) * N_LANES * 2)))
             for done in range(0, total, lane):
                 sl = slice(done, min(total, done + lane))
-                padded = gather_pad(*mats, *_pair_index(mats, pairs, sl, device))
-                chunks.append((band_align_traceback_padded(
-                    *padded, gapextend=gapextend, nucprior=nucprior), sl))
+                chunks.append((band_align_traceback_pairs(
+                    *mats, *_pair_index(mats, pairs, sl, device),
+                    gapextend=gapextend, nucprior=nucprior), sl))
             pending.flank_groups.append((group, chunks))
             continue
         # K1 chunks hold exactly their pairs, at most CHUNK_PAIRS.

@@ -6,16 +6,20 @@ its library has two entries over one DP body: `band_align_pairs`, which
 gathers and pads each pair from the deduplicated matrices itself (the
 main path's dispatch and the mesh's lane step), and `band_align_padded`,
 on gather/pad's column tensors (the graft entry, the mesh's demo step).
-`band_align_traceback_padded` is the port of
-band_align_traceback_padded_pallas (K2, --calculateFlankScore).  A tensor
-on the CPU goes to the plain torch version (align_torch); a CUDA tensor
-launches the hand-written sm_90a kernel or raises.  Nothing falls back.
+K2 (csrc/band_align_tb.cu) is the port of
+band_align_traceback_padded_pallas (--calculateFlankScore); its one entry,
+`band_align_traceback_pairs`, gathers and pads its pairs as K1's pair
+entry does and writes 16-bit label words.  Both pair entries share
+csrc/pair_loader.cuh.  A tensor on the CPU goes to the plain torch version
+(align_torch); a CUDA tensor launches the hand-written sm_90a kernel or
+raises.  Nothing falls back.
 
 Each kernel library is compiled with nvcc into a shared library with a
 plain C interface and bound through ctypes.  The build runs at first use,
-into platypus_tpu_torch/_build/, keyed by a hash of the source and flags,
-so a fresh checkout builds it on its first call.  This module imports no
-CUDA tool: it imports on a machine without nvcc or a card.
+into platypus_tpu_torch/_build/, keyed by a hash of the source, the
+headers it may include (csrc/*.cuh) and the flags, so a fresh checkout
+builds it on its first call.  This module imports no CUDA tool: it
+imports on a machine without nvcc or a card.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 
 from .align_torch import (band_align_padded_reference,
                           band_align_pairs_reference,
-                          band_align_traceback_padded_reference)
+                          band_align_traceback_pairs_reference)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -49,7 +53,8 @@ KERNELS: Dict[str, Kernel] = {
     "band_align": Kernel({"ptt_band_align_pairs": [_P] * 9 + [_I] * 5 + [_P],
                           "ptt_band_align": [_P] * 6 + [_I] * 4 + [_P]},
                          "platypus_tpu/ops/align_pallas.py:48"),
-    "band_align_tb": Kernel({"ptt_band_align_tb": [_P] * 8 + [_I] * 4 + [_P]},
+    "band_align_tb": Kernel({"ptt_band_align_tb_pairs": [_P] * 11 + [_I] * 5
+                                                        + [_P]},
                             "platypus_tpu/ops/align_pallas.py:145"),
 }
 
@@ -77,8 +82,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(source(name), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    """The build of kernel library `name`, keyed by its source, every
+    csrc/*.cuh header and the flags: a header edit rebuilds every library."""
+    csrc = os.path.dirname(source(name))
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for path in [source(name)] + [os.path.join(csrc, f) for f in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -181,15 +193,15 @@ def band_align_padded(hap_cols: torch.Tensor, go4_cols: torch.Tensor,
     return out
 
 
-def _check_pair_inputs(mats, index):
+def _check_pair_inputs(what, mats, index):
     """uint8 [H, L1B] hap / gap-open and [A, L2] read / quality matrices and
     int32 [B] pair hap / read / segment / read-length rows, contiguous and
     on one device.  Returns (B, L1B, L2)."""
     dev = index[3].device
     hap_shape, seq_shape = tuple(mats[0].shape), tuple(mats[2].shape)
     if len(hap_shape) != 2 or len(seq_shape) != 2 or len(index[3].shape) != 1:
-        raise ValueError("band_align_pairs: the matrices must be 2-d and the "
-                         "pair rows 1-d")
+        raise ValueError(f"{what}: the matrices must be 2-d and the pair "
+                         "rows 1-d")
     B = index[3].shape[0]
     names = ("hap_mat", "go_mat", "seq_mat", "qual_mat", "pair_hap",
              "pair_read", "pair_seg", "read_len")
@@ -197,11 +209,11 @@ def _check_pair_inputs(mats, index):
     dtypes = (torch.uint8,) * 4 + (torch.int32,) * 4
     for name, t, dtype, shape in zip(names, (*mats, *index), dtypes, shapes):
         if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"band_align_pairs: {name} must be {dtype} on "
-                             f"{dev}, got {t.dtype} on {t.device}")
+            raise ValueError(f"{what}: {name} must be {dtype} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
         if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"band_align_pairs: {name} must be a contiguous "
-                             f"{shape} tensor, got {tuple(t.shape)}")
+            raise ValueError(f"{what}: {name} must be a contiguous {shape} "
+                             f"tensor, got {tuple(t.shape)}")
     return B, hap_shape[1], seq_shape[1]
 
 
@@ -225,7 +237,7 @@ def band_align_pairs(hap_mat: torch.Tensor, go_mat: torch.Tensor,
                                           nucprior=nucprior)
     if dev.type != "cuda":
         raise ValueError(f"band_align_pairs: unsupported device {dev}")
-    B, L1B, L2 = _check_pair_inputs(mats, index)
+    B, L1B, L2 = _check_pair_inputs("band_align_pairs", mats, index)
     lib = load("band_align")
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
@@ -236,29 +248,34 @@ def band_align_pairs(hap_mat: torch.Tensor, go_mat: torch.Tensor,
     return out
 
 
-def band_align_traceback_padded(hap_cols: torch.Tensor, go4_cols: torch.Tensor,
-                                read_cols: torch.Tensor, qual4_cols: torch.Tensor,
-                                read_len: torch.Tensor, gapextend: int = 3,
-                                nucprior: int = 2):
-    """Traceback mode on the inputs of band_align_padded -> (score [B],
-    exit index [B], label words [(L2+8)*8, B]), all int32; see
-    align_torch.band_align_traceback_padded_reference."""
-    dev = read_cols.device
+def band_align_traceback_pairs(hap_mat: torch.Tensor, go_mat: torch.Tensor,
+                               seq_mat: torch.Tensor, qual_mat: torch.Tensor,
+                               pair_hap: torch.Tensor, pair_read: torch.Tensor,
+                               pair_seg: torch.Tensor, read_len: torch.Tensor,
+                               gapextend: int = 3, nucprior: int = 2):
+    """K2's pair entry: traceback mode on the inputs of band_align_pairs ->
+    (score [B] int32, exit index [B] int32, label words [(L2+8)*8, B]
+    int16); see align_torch.band_align_traceback_pairs_reference.
+    Launches exactly B pairs.  The kernel does not bound-check the pair
+    rows: callers check them on the host before the upload
+    (engine/score.check_pair_rows)."""
+    mats = (hap_mat, go_mat, seq_mat, qual_mat)
+    index = (pair_hap, pair_read, pair_seg, read_len)
+    dev = read_len.device
     if dev.type == "cpu":
-        return band_align_traceback_padded_reference(
-            hap_cols, go4_cols, read_cols, qual4_cols, read_len,
-            gapextend=gapextend, nucprior=nucprior)
+        return band_align_traceback_pairs_reference(
+            *mats, *index, gapextend=gapextend, nucprior=nucprior)
     if dev.type != "cuda":
-        raise ValueError(f"band_align_traceback_padded: unsupported device {dev}")
-    args = (hap_cols, go4_cols, read_cols, qual4_cols, read_len)
-    n_steps, B = _check_inputs("band_align_traceback_padded", *args)
+        raise ValueError(f"band_align_traceback_pairs: unsupported device {dev}")
+    B, L1B, L2 = _check_pair_inputs("band_align_traceback_pairs", mats, index)
     lib = load("band_align_tb")
     score = torch.empty(B, dtype=torch.int32, device=dev)
     idx = torch.empty(B, dtype=torch.int32, device=dev)
-    bp = torch.empty((n_steps * 8, B), dtype=torch.int32, device=dev)
+    bp = torch.empty(((L2 + 8) * 8, B), dtype=torch.int16, device=dev)
     if B == 0:
         return score, idx, bp
-    _launch(dev, "band_align_tb", lib.ptt_band_align_tb,
-            *(t.data_ptr() for t in args), score.data_ptr(), idx.data_ptr(),
-            bp.data_ptr(), B, n_steps, int(gapextend), int(nucprior))
+    _launch(dev, "band_align_tb", lib.ptt_band_align_tb_pairs,
+            *(t.data_ptr() for t in (*mats, *index)), score.data_ptr(),
+            idx.data_ptr(), bp.data_ptr(), B, L1B, L2, int(gapextend),
+            int(nucprior))
     return score, idx, bp

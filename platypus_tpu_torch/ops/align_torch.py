@@ -5,9 +5,12 @@ over exactly: haplotype columns pad with 'N', gap-open columns clamp to the
 value at len1-1 (len1 = read_len + 15), read columns pad with '0' and
 4*quality columns with 4*64.  `band_align_pairs_reference` (gather/pad,
 then the plain DP), `band_align_padded_reference` and
-`band_align_traceback_padded_reference` are the plain versions of the
-CUDA kernels' entries in ops/align_cuda.py: the CPU tests run them, and
-chip_smoke.py holds each kernel against its plain version on the card.
+`band_align_traceback_pairs_reference` (gather/pad, then the plain
+traceback DP) are the plain versions of the CUDA kernels' entries in
+ops/align_cuda.py: the CPU tests run them, and chip_smoke.py holds each
+kernel against its plain version on the card.
+`band_align_traceback_padded_reference` is the traceback DP's spec on
+padded columns, held against the Pallas kernel.
 
 Scores are integer phred, bit-identical to ops/align_core.band_align_single
 and, in traceback mode, band_align_traceback (tests/test_torch_align.py
@@ -61,9 +64,9 @@ def _pad_core(hap_seg, gapopen_seg, read, qual, read_len):
 def gather_pad(hap_mat, go_mat, seq_mat, qual_mat,
                pair_hap, pair_read, pair_seg, read_len):
     """Per-chunk pair materialisation (twin of align_jax._gather_pad_device)
-    for K2 and for K1's plain pair version: gather each pair's haplotype
-    segment and read row from the deduplicated [H, L1B] / [A, L2]
-    matrices, then sentinel-pad.
+    for the plain versions of K1's and K2's pair entries: gather each
+    pair's haplotype segment and read row from the deduplicated [H, L1B] /
+    [A, L2] matrices, then sentinel-pad.
 
     A segment may run past the matrix width: JAX's gather clamps such
     column indices to L1B-1, torch's raises, so the clamp is explicit."""
@@ -288,6 +291,23 @@ def band_align_traceback_padded_reference(hap_cols, go4_cols, read_cols,
         best_r = torch.where(upd, r, best_r)
         best_p = torch.where(upd, row_phase[:, r], best_p)
     return (best + 0x8000) >> 2, 2 * (read_len + best_r) + best_p, bp
+
+
+def band_align_traceback_pairs_reference(hap_mat, go_mat, seq_mat, qual_mat,
+                                         pair_hap, pair_read, pair_seg,
+                                         read_len, gapextend: int = 3,
+                                         nucprior: int = 2):
+    """Plain version of K2's pair entry (align_cuda.band_align_traceback_pairs):
+    the pairs gathered and sentinel-padded from the deduplicated matrices
+    (gather_pad), then the plain traceback DP -> (score [B] int32, exit
+    index [B] int32, label words [(L2+8)*8, B] int16).  The narrowing is
+    lossless: a word has 16 bits (bits 16-31 of the int32 words are
+    always 0), taken as int16, so a word with bit 15 set reads negative."""
+    score, idx, bp = band_align_traceback_padded_reference(
+        *gather_pad(hap_mat, go_mat, seq_mat, qual_mat, pair_hap, pair_read,
+                    pair_seg, read_len),
+        gapextend=gapextend, nucprior=nucprior)
+    return score, idx, ((bp ^ 0x8000) - 0x8000).to(torch.int16)
 
 
 def band_align_batch(hap_seg, gapopen_seg, read, qual, read_len,

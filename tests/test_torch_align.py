@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import flank_golden_mismatches, flank_goldens, golden_groups
+from chip_smoke import (flank_golden_mismatches, flank_goldens, golden_groups,
+                        pair_inputs, tie_pairs)
 from platypus_tpu.ops.align_jax import (_gather_pad_device, band_align_padded,
                                         pad_alignment_inputs)
 from platypus_tpu.ops.align_pallas import (band_align_padded_pallas,
@@ -176,14 +177,18 @@ def _pair_matrices(seed, B, L2, overhang, n_frac, mixed):
     return (hap_mat, go_mat, seq_mat, qual_mat), (ph, pr, ps, rl)
 
 
-@pytest.mark.parametrize("seed,B,L2,overhang,n_frac,mixed", [
+# (seed, B, L2, overhang, n_frac, mixed) of _pair_matrices
+PAIR_CASES = [
     (21, 300, 40, True, 0.0, True),     # segments past the matrix width
     (22, 256, 40, False, 0.0, True),    # mixed read lengths
     (23, 256, 32, False, 0.03, False),  # 'N' bases, full-length reads
     (24, 200, 40, True, 0.02, True),    # B not a multiple of 128
     (25, 1, 40, False, 0.0, True),      # B = 1
     (26, 64, 128, True, 0.01, True),    # the main path's L2 for 100 bp
-])
+]
+
+
+@pytest.mark.parametrize("seed,B,L2,overhang,n_frac,mixed", PAIR_CASES)
 def test_pair_entry_plain_version_matches_jax(seed, B, L2, overhang, n_frac,
                                               mixed):
     """band_align_pairs_reference (K1's pair entry's plain version) ==
@@ -213,14 +218,45 @@ def test_pair_wrapper_on_cpu_tensors_runs_plain_version():
     assert align_cuda.LAUNCHES == before
 
 
+@pytest.mark.parametrize("case", PAIR_CASES + ["ties"])
+def test_traceback_pair_plain_version_matches_jax(case):
+    """band_align_traceback_pairs_reference (K2's pair entry's plain
+    version) == the JAX package's _gather_pad_device followed by the
+    Pallas traceback kernel in interpret mode: score and exit index
+    bitwise, and the int16 label words are the int32 ones, which never use
+    bits 16-31.  "ties": homopolymer pairs whose exit cells tie across
+    rows and phases."""
+    if case == "ties":
+        args = pair_inputs(tie_pairs(28, 200, 40), "cpu")
+        mats, idx = [a.numpy() for a in args[:4]], [a.numpy() for a in args[4:]]
+    else:
+        mats, idx = _pair_matrices(*case)
+    B, L2 = len(idx[3]), mats[2].shape[1]
+    want = [np.asarray(x) for x in band_align_traceback_padded_pallas(
+        *_gather_pad_device(*mats, *idx))]
+    score, exit_idx, bp = align_torch.band_align_traceback_pairs_reference(
+        *(torch.from_numpy(a) for a in (*mats, *idx)))
+    assert [t.dtype for t in (score, exit_idx, bp)] == [torch.int32,
+                                                        torch.int32,
+                                                        torch.int16]
+    assert bp.shape == ((L2 + 8) * 8, B)
+    np.testing.assert_array_equal(score.numpy(), want[0])
+    np.testing.assert_array_equal(exit_idx.numpy(), want[1])
+    assert ((want[2] >> 16) == 0).all()
+    np.testing.assert_array_equal(bp.view(torch.uint16).numpy(), want[2])
+
+
 def test_traceback_wrapper_on_cpu_tensors_runs_plain_dp():
-    """A CPU tensor reaches the plain traceback DP; no launch is counted."""
+    """A CPU tensor reaches K2's pair entry's plain version (the goldens
+    through identity indices); no launch is counted."""
     cases, inputs = flank_goldens()
-    padded = align_torch.pad_alignment_inputs(*inputs)
+    args = pair_inputs(inputs, "cpu")
     before = dict(align_cuda.LAUNCHES)
-    got = align_cuda.band_align_traceback_padded(*padded)
-    want = align_torch.band_align_traceback_padded_reference(*padded)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    got = align_cuda.band_align_traceback_pairs(*args)
+    score, idx, bp = align_torch.band_align_traceback_padded_reference(
+        *align_torch.gather_pad(*args))
+    assert torch.equal(got[0], score) and torch.equal(got[1], idx)
+    assert torch.equal(got[2].view(torch.uint16).int(), bp)
     np.testing.assert_array_equal(got[0].numpy(), [c["score"] for c in cases])
+    assert flank_golden_mismatches(cases, *(t.numpy() for t in got)) == []
     assert align_cuda.LAUNCHES == before

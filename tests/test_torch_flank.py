@@ -23,8 +23,8 @@ def test_port_flank_cli_matches_jax_package(datasets, kind, extra):  # noqa: F81
     want = _reference_lines(workdir, ref_path, [FLANK, *extra])
     assert want
     out = f"{workdir}/port_flank.vcf"
-    tb = mock.patch.object(align_cuda, "band_align_traceback_padded",
-                           wraps=align_cuda.band_align_traceback_padded)
+    tb = mock.patch.object(align_cuda, "band_align_traceback_pairs",
+                           wraps=align_cuda.band_align_traceback_pairs)
     # On a device the port never takes the host path's scalar flank scoring.
     no_scalar = mock.patch.object(port_score, "_scalar_flank_scores",
                                   side_effect=AssertionError)
@@ -44,7 +44,7 @@ def test_flank_kernel_failure_stops_the_run(tmp_path, datasets,  # noqa: F811
     def failing_kernel(*args, **kwargs):
         raise RuntimeError("band_align_tb kernel launch failed: CUDA error 719")
 
-    monkeypatch.setattr(align_cuda, "band_align_traceback_padded", failing_kernel)
+    monkeypatch.setattr(align_cuda, "band_align_traceback_pairs", failing_kernel)
     monkeypatch.setattr(port_score, "_scalar_flank_scores",
                         mock.Mock(side_effect=AssertionError))
     _name, workdir, ref_path = datasets("spread")

@@ -93,8 +93,8 @@ def test_hla_flank_cli_matches_jax_package(tmp_path, hla_setup):  # noqa: F811
     assert jax_cli(_hla_cli_args(hla_setup, want_out, tmp_path / "jax.log",
                                  extra)) == 0
     out = str(tmp_path / "port.vcf")
-    tb = mock.patch.object(align_cuda, "band_align_traceback_padded",
-                           wraps=align_cuda.band_align_traceback_padded)
+    tb = mock.patch.object(align_cuda, "band_align_traceback_pairs",
+                           wraps=align_cuda.band_align_traceback_pairs)
     with tb as tb_calls:
         assert port_cli.main(_hla_cli_args(hla_setup, out, tmp_path / "port.log",
                                            extra), device="cpu") == 0
@@ -106,7 +106,9 @@ def test_hla_flank_cli_matches_jax_package(tmp_path, hla_setup):  # noqa: F811
 @pytest.mark.parametrize("kernel,extra", [
     # K1's main-path wrapper is its pair entry; the case keeps its id
     pytest.param("band_align_pairs", [], id="band_align_padded-extra0"),
-    ("band_align_traceback_padded", ["--calculateFlankScore=1"]),
+    # K2's wrapper is its pair entry; the case keeps its id
+    pytest.param("band_align_traceback_pairs", ["--calculateFlankScore=1"],
+                 id="band_align_traceback_padded-extra1"),
 ])
 def test_hla_window_kernel_failure_stops_the_run(tmp_path, hla_setup,  # noqa: F811
                                                  monkeypatch, kernel, extra):

@@ -199,9 +199,10 @@ def test_pair_wrapper_rejects_other_devices():
 
 
 def test_traceback_wrapper_rejects_other_devices():
-    t = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    m = torch.zeros((4, 2), dtype=torch.uint8, device="meta")
+    t = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        align_cuda.band_align_traceback_padded(t, t, t, t, t[0])
+        align_cuda.band_align_traceback_pairs(m, m, m, m, t, t, t, t)
 
 
 def test_kernel_build_names_every_source():
@@ -213,6 +214,19 @@ def test_kernel_build_names_every_source():
         assert os.path.exists(align_cuda.source(name))
         assert os.path.basename(path).startswith(f"lib{name}_")
     assert len(set(paths.values())) == 2
+
+
+def test_kernel_build_is_keyed_by_the_shared_headers(tmp_path, monkeypatch):
+    """A library's build path changes with any csrc/*.cuh header, not only
+    with its own source, so a header edit rebuilds both kernels."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(align_cuda, "source",
+                        lambda name: str(tmp_path / f"{name}.cu"))
+    first = align_cuda.library_path("k")
+    assert align_cuda.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert align_cuda.library_path("k") != first
 
 
 def test_kernel_table_names_the_tpu_kernels():

@@ -1,7 +1,7 @@
 """K1 (platypus_tpu_torch/csrc/band_align.cu: its padded entry and its pair
 entry, which gathers and pads its pairs from the deduplicated matrices) and
-K2, its traceback mode (csrc/band_align_tb.cu), on the card, against their
-plain torch versions.
+K2, its traceback mode (csrc/band_align_tb.cu, a pair entry with 16-bit
+label words), on the card, against their plain torch versions.
 These tests need a CUDA device and skip without one; this file imports no
 jax, so on a machine with a card and without jax run it as
 
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from chip_smoke import (flank_golden_mismatches, flank_goldens,
-                        golden_groups, pair_inputs, random_pairs)
+                        golden_groups, pair_inputs, random_pairs, tie_pairs)
 from platypus_tpu_torch.ops import align_cuda, align_torch
 
 
@@ -122,44 +122,48 @@ def test_pair_entry_wrapper_rejects_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_tb_kernel_matches_plain_dp_on_card(cuda_device):
-    """K2's score, exit index and label block bitwise on the flank goldens
-    (whose alignments the host backtrace then recovers) and on B=2000
-    mixed-length pairs with 'N' bases."""
+    """K2's pair entry: score, exit index and label block bitwise against
+    its plain version on the flank goldens (identity indices; the host
+    backtrace then recovers their alignments), on B=2000 mixed-length
+    pairs with 'N' bases and overhanging segments, and on tied exit cells."""
     cases, golden_inputs = flank_goldens()
-    for inputs in (golden_inputs, random_pairs(6, 2000, 100)):
-        padded = align_torch.pad_alignment_inputs(*inputs, device=cuda_device)
-        got = align_cuda.band_align_traceback_padded(*padded)
-        want = align_torch.band_align_traceback_padded_reference(*padded)
+    golden = pair_inputs(golden_inputs, cuda_device)
+    for args in (golden,
+                 pair_inputs(random_pairs(6, 2000, 100), cuda_device,
+                             overhang_seed=6, width=128),
+                 pair_inputs(tie_pairs(6, 300, 100), cuda_device, width=128)):
+        got = align_cuda.band_align_traceback_pairs(*args)
+        want = align_torch.band_align_traceback_pairs_reference(*args)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
-            assert torch.equal(g, w)
-    got = align_cuda.band_align_traceback_padded(*align_torch.pad_alignment_inputs(
-        *golden_inputs, device=cuda_device))
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    got = align_cuda.band_align_traceback_pairs(*golden)
     assert flank_golden_mismatches(cases, *(t.cpu().numpy() for t in got)) == []
 
 
 @pytest.mark.cuda
 def test_tb_kernel_counts_each_launch(cuda_device):
-    padded = align_torch.pad_alignment_inputs(*random_pairs(7, 300, 64),
-                                              device=cuda_device)
+    args = pair_inputs(random_pairs(7, 300, 64), cuda_device)
     before = dict(align_cuda.LAUNCHES)
-    align_cuda.band_align_traceback_padded(*padded)
-    align_cuda.band_align_traceback_padded(*padded)
+    align_cuda.band_align_traceback_pairs(*args)
+    align_cuda.band_align_traceback_pairs(*args)
     before["band_align_tb"] += 2
     assert align_cuda.LAUNCHES == before
 
 
 @pytest.mark.cuda
 def test_tb_kernel_wrapper_rejects_bad_inputs(cuda_device):
-    hap, go, read, qual, rlen = align_torch.pad_alignment_inputs(
-        *random_pairs(8, 256, 32), device=cuda_device)
-    tb = align_cuda.band_align_traceback_padded
+    hap, go, seq, qual, ph, pr, ps, rl = pair_inputs(random_pairs(8, 256, 32),
+                                                     cuda_device)
+    tb = align_cuda.band_align_traceback_pairs
+    with pytest.raises(ValueError, match="uint8"):
+        tb(hap, go, seq.int(), qual, ph, pr, ps, rl)
     with pytest.raises(ValueError, match="int32"):
-        tb(hap, go, read.long(), qual, rlen)
+        tb(hap, go, seq, qual, ph, pr.long(), ps, rl)
     with pytest.raises(ValueError, match="contiguous"):
-        tb(hap[:, ::2], go[:, ::2], read[:, ::2], qual[:, ::2], rlen[::2])
+        tb(hap, go, seq, qual, ph[::2], pr[::2], ps[::2], rl[::2])
     with pytest.raises(ValueError, match="int32 on"):
-        tb(hap, go, read, qual, rlen.cpu())
+        tb(hap, go, seq, qual, ph, pr, ps, rl.cpu())
 
 
 class _CudaLike:
@@ -207,13 +211,13 @@ def test_launch_runs_inside_the_inputs_device(monkeypatch, name):
                         _CudaLike(real_empty(*a, **k), torch.device(device)))
     monkeypatch.setattr(align_cuda, "load", lambda lib: SimpleNamespace(
         **dict.fromkeys(align_cuda.KERNELS[lib].entries, entry)))
-    if name == "band_align_pairs":
+    if name in ("band_align_pairs", "band_align_tb"):
         tensors = pair_inputs(random_pairs(9, 64, 32), "cpu")
     else:
         tensors = align_torch.pad_alignment_inputs(*random_pairs(9, 64, 32))
     inputs = [_CudaLike(t, dev) for t in tensors]
     wrapper = {"band_align": align_cuda.band_align_padded,
-               "band_align_tb": align_cuda.band_align_traceback_padded,
+               "band_align_tb": align_cuda.band_align_traceback_pairs,
                "band_align_pairs": align_cuda.band_align_pairs}[name]
     before = dict(align_cuda.LAUNCHES)
     wrapper(*inputs)
@@ -239,8 +243,8 @@ def test_kernels_launch_on_the_last_card(cuda_device):
     args = pair_inputs(random_pairs(10, 2000, 100), dev, overhang_seed=10)
     assert torch.equal(align_cuda.band_align_pairs(*args),
                        align_torch.band_align_pairs_reference(*args))
-    for g, w in zip(align_cuda.band_align_traceback_padded(*padded),
-                    align_torch.band_align_traceback_padded_reference(*padded)):
+    for g, w in zip(align_cuda.band_align_traceback_pairs(*args),
+                    align_torch.band_align_traceback_pairs_reference(*args)):
         assert torch.equal(g, w)
     torch.cuda.synchronize(dev)
     assert got.device == dev and torch.cuda.current_device() == before

@@ -13,7 +13,7 @@ import torch
 
 from platypus_tpu.engine import score as jax_score
 from platypus_tpu_torch.engine import score as port_score
-from platypus_tpu_torch.ops import align_cuda
+from platypus_tpu_torch.ops import align_cuda, align_torch
 from torch_twin_util import JAX_PKG, PORT_PKG, prepare
 
 CPU = torch.device("cpu")
@@ -240,6 +240,45 @@ def test_flank_dispatch_matches_jax_scalar_path(flank_requests,
         assert np.array_equal(g, w)
 
 
+def test_k2_chunks_carry_exactly_their_pairs(flank_requests,
+                                             jax_flank_requests, monkeypatch):
+    """The flank dispatch calls K2's pair entry once per chunk, with the
+    group's matrices and exactly the chunk's pair rows (no gather/pad, no
+    pad pairs), and gets 16-bit label words back; finalize() equals the
+    JAX package's flank finalize."""
+    monkeypatch.setenv("PLATYPUS_TPU_DEVICE_FLANK", "0")
+    want = jax_score.dispatch_alignment_requests(jax_flank_requests).finalize()
+    L2 = flank_requests[0].sub_seq.shape[1]
+    monkeypatch.setattr(port_score, "FLANK_BP_BYTES", 64 * (L2 + 8) * 8 * 2)
+    gather_pad = mock.patch.object(align_torch, "gather_pad",
+                                   wraps=align_torch.gather_pad)
+    pairs_kernel = mock.patch.object(align_cuda, "band_align_traceback_pairs",
+                                     wraps=align_cuda.band_align_traceback_pairs)
+    with pairs_kernel as calls, gather_pad as pads:
+        pending = port_score.dispatch_alignment_requests(flank_requests, CPU)
+    # on the CPU the wrapper's plain version gathers and pads, once a call
+    assert pads.call_count == calls.call_count
+    mats, rows = port_score._group_matrices(flank_requests)
+    (_owners, chunks), = pending.flank_groups
+    assert len(calls.call_args_list) == len(chunks) > 4
+    done = 0
+    for call, ((score, idx, bp), sl) in zip(calls.call_args_list, chunks):
+        assert (sl.start, sl.stop) == (done, done + len(score))
+        assert 0 < len(score) <= 64
+        for got, m in zip(call.args[:4], mats):
+            np.testing.assert_array_equal(got.numpy(), m)
+        for got, values in zip(call.args[4:8], rows):
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), values[sl])
+        assert bp.dtype == torch.int16 and bp.shape == ((L2 + 8) * 8, len(score))
+        done = sl.stop
+    assert done == len(rows[0]) == sum(r.n_pairs() for r in flank_requests)
+    got = pending.finalize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
 def test_flank_chunks_under_the_byte_bound(flank_requests, region_requests,
                                            monkeypatch):
     """A label-block bound below one lane chunk cuts the flank pairs into
@@ -251,7 +290,7 @@ def test_flank_chunks_under_the_byte_bound(flank_requests, region_requests,
     want = (port_score.dispatch_alignment_requests(flank_requests, CPU).finalize()
             + port_score.dispatch_alignment_requests(plain_reqs, CPU).finalize())
     L2 = flank_requests[0].sub_seq.shape[1]
-    monkeypatch.setattr(port_score, "FLANK_BP_BYTES", 50 * (L2 + 8) * 8 * 4)
+    monkeypatch.setattr(port_score, "FLANK_BP_BYTES", 50 * (L2 + 8) * 8 * 2)
     before = dict(align_cuda.LAUNCHES)
     pending = port_score.dispatch_alignment_requests(
         flank_requests + plain_reqs, CPU)
