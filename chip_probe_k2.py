@@ -38,24 +38,37 @@ PARENT = os.path.join(chip_smoke.REPO, "_checkout", "parent_tb",
                       "band_align_tb.cu")
 CSRC = os.path.join(chip_smoke.REPO, "platypus_tpu_torch", "csrc")
 
-STORE = "    out[r * p.stride] = (uint16_t)word[r];"
 ALTERNATIVES = {
-    # a lane past B stores nothing (a predicate on every label store)
-    "store_predicate": [
-        ("  size_t stride;  // B\n", "  size_t stride;  // B\n  bool store;\n"),
-        (STORE, "    if (p.store) " + STORE.lstrip()),
-        ("bp + b, (size_t)B};", "bp + b, (size_t)B, lane_b < B};")],
+    # exit captures only in warp-uniform capture blocks, those that meet
+    # [least read_len, largest read_len + 8) of the warp (__reduce_min_sync
+    # / __reduce_max_sync); a lane past B mirrors pair B-1
+    "warp_uniform_capture_blocks": [
+        ("template <int K, bool INIT>\n__device__",
+         "template <int K, bool INIT, bool CAPTURE = true>\n__device__"),
+        ("    if (exit_base == r - K) ve", "    if (CAPTURE && exit_base == r - K) ve"),
+        ("    if (exit_base == r - K) vo", "    if (CAPTURE && exit_base == r - K) vo"),
+        ("template <int N, bool INIT, bool TAIL = false, int K = 0>",
+         "template <int N, bool INIT, bool TAIL = false, bool CAPTURE = true,\n"
+         "          int K = 0>"),
+        ("    tb_step<K, INIT>(s,", "    tb_step<K, INIT, CAPTURE>(s,"),
+        ("    tb_block<N, INIT, TAIL, K + 1>(s", "    tb_block<N, INIT, TAIL, CAPTURE, K + 1>(s"),
+        ("                                       int& score, int& idx) {",
+         "                                       int lo, int hi, int& score,\n"
+         "                                       int& idx) {"),
+        ("    tb_block<kUnroll, false>(s, in, t0, p);",
+         "    if (t0 + kUnroll <= lo || t0 >= hi + kLanes)\n"
+         "      tb_block<kUnroll, false, false, false>(s, in, t0, p);\n"
+         "    else\n      tb_block<kUnroll, false>(s, in, t0, p);"),
+        ("  const int b = blockIdx.x * blockDim.x + threadIdx.x;\n  if (b >= B) return;",
+         "  const int lane_b = blockIdx.x * blockDim.x + threadIdx.x;\n"
+         "  const int b = min(lane_b, B - 1);"),
+        ("  tb_run(ld, p, score, idx);\n  score_out[b] = score;\n  idx_out[b] = idx;",
+         "  const int lo = __reduce_min_sync(0xffffffffu, read_len);\n"
+         "  const int hi = __reduce_max_sync(0xffffffffu, read_len);\n"
+         "  tb_run(ld, p, lo, hi, score, idx);\n"
+         "  if (lane_b < B) {\n    score_out[b] = score;\n    idx_out[b] = idx;\n  }")],
     # the I stamp as written in the TPU kernel: two LOP3s
     "i_stamp_two_ops": [("  i |= 1;", "  i = (i & ~3) | 1;")],
-    # a plain first block besides the capturing one
-    "two_first_blocks": [
-        ("    tb_block<kLanes, true, true>(s, in, 0, p);",
-         "    if (lo >= kLanes)\n      tb_block<kLanes, true, false>(s, in, 0, p);"
-         "\n    else\n      tb_block<kLanes, true, true>(s, in, 0, p);")],
-    # exit captures in every block: one loop body
-    "captures_everywhere": [
-        ("      tb_block<kUnroll, false, false>(s, in, t0, p);",
-         "      tb_block<kUnroll, false, true>(s, in, t0, p);")],
     # a capture picks the exit row's cell by a select tree on the row's bits
     "select_tree_captures": [
         ("// Step t = t0 + K, K compile-time.",
@@ -70,10 +83,10 @@ __device__ __forceinline__ int pick(const int* v, int row) {
 }
 
 // Step t = t0 + K, K compile-time."""),
-        ("    if (CAPTURE && exit_base == r - K) ve = s.m1[r];\n  }\n",
-         "  }\n  if (CAPTURE) ve = pick(s.m1, exit_base + K);\n"),
-        ("    if (CAPTURE && exit_base == r - K) vo = s.m2[r];\n  }\n",
-         "  }\n  if (CAPTURE) vo = pick(s.m2, exit_base + K);\n")],
+        ("    if (exit_base == r - K) ve = s.m1[r];\n  }\n",
+         "  }\n  ve = pick(s.m1, exit_base + K);\n"),
+        ("    if (exit_base == r - K) vo = s.m2[r];\n  }\n",
+         "  }\n  vo = pick(s.m2, exit_base + K);\n")],
     # each field as a cell minus its stamp, merged by multiply-adds (FMA pipe)
     "fma_pipe_labels": [
         ("""    word[r] = below(below(s.m1[r], (unsigned)s.i1[r] << 2, 0x3),

@@ -25,22 +25,24 @@
 // instructions over the 8 rows (chip_smoke.py TB_OPS_PER_STEP), 124 of
 // them for the label words and stamps, and every step of every pair is
 // written: 8 label words of 2 bytes, 28 MB at B=16384 and L2=100, which at
-// the card's memory rate take under a third of the operations' time.
-// What the design does:
+// the card's memory rate take about a third of the operations' time.
+// What the design does (each choice measured on the card, PERF.md):
 // * K1's loop: the sliding windows are circular 8-slot registers indexed
 //   by the step modulo 8 (a shift is a rename), steps 0-7 (the init row)
 //   are peeled into one block of 8, the rest runs in blocks of kUnroll = 4
-//   steps with one rotation each, and each block's words are loaded while
-//   the block before it computes.
+//   steps with one rotation each (and one shorter last block where L2 is
+//   not a multiple of 4), and each block's words are loaded while the
+//   block before it computes.
 // * No early stop: the whole label block is the contract, so unlike K1 a
-//   warp runs every step 0 .. n_steps-1 of every pair.
-// * The exit captures run only in warp-uniform capture blocks: those that
-//   meet [least read_len, largest read_len + 8) of the warp.  They are
-//   tracked online in best / best_idx: the exit cell of row r lies at
-//   step read_len + r, so rows ascending are steps ascending, and a strict
-//   `<` update, even phase before odd, keeps the first strict minimum the
-//   TPU kernel resolves after its loop.  best starts above every cell, so
-//   row 0 always sets it.
+//   thread runs every step 0 .. n_steps-1 of its pair.
+// * The exit captures are tracked online in best / best_idx, in every
+//   block: the exit cell of row r lies at step read_len + r, so rows
+//   ascending are steps ascending, and a strict `<` update, even phase
+//   before odd, keeps the first strict minimum the TPU kernel resolves
+//   after its loop.  best starts above every cell, so row 0 always sets
+//   it.  A capture costs about 3% of a step; blocks without captures
+//   beside them (warp-uniform, from the warp's least and largest read_len)
+//   took more registers and code and measured slower.
 // * A row's label word is built from the six cells' low bits by five bit
 //   selects (one LOP3 each) of the cells shifted to their fields, whose
 //   zero low bits fill the gaps; bits above 15 are never stored.  The d1
@@ -50,8 +52,7 @@
 //   follow it, and i2 row 7 is forced to POS_INF before its label and
 //   stamp, so it carries 0x7801 into the next step.
 // * 16-bit label stores, column-major [n_steps*8, B]: a warp's 32 threads
-//   write 64 contiguous bytes per row word.  A lane past B mirrors pair
-//   B-1 (so the warp's reductions stay whole) and stores nothing.
+//   write 64 contiguous bytes per row word.  A thread past B exits first.
 // * Block size from threads_for: 128, 64 or 32 threads, at least one
 //   block per SM.
 // int32 arithmetic throughout, with an arithmetic >> 2 for the score.
@@ -93,8 +94,8 @@ __device__ __forceinline__ void stamp(int& m, int& i, int& d) {
 }
 
 // Step t = t0 + K, K compile-time.  INIT: the block of steps 0-7 (t == K).
-// CAPTURE: the block may hold exit cells (row t - read_len in 0..7).
-template <int K, bool INIT, bool CAPTURE>
+// Row t - read_len, if in 0..7, holds the pair's exit cell at this step.
+template <int K, bool INIT>
 __device__ __forceinline__ void tb_step(TbState& s, int rd, int q4, int hp,
                                         int g4, int t0, const TbPair& p) {
   const int ge = p.ge, npr = p.npr;
@@ -111,7 +112,7 @@ __device__ __forceinline__ void tb_step(TbState& s, int rd, int q4, int hp,
 #pragma unroll
   for (int r = 0; r < kLanes; ++r) {
     s.m1[r] = min(s.m1[r], min(s.i1[r], s.d1[r]));
-    if (CAPTURE && exit_base == r - K) ve = s.m1[r];
+    if (exit_base == r - K) ve = s.m1[r];
   }
   int d1n[kLanes - 1];
 #pragma unroll
@@ -142,7 +143,7 @@ __device__ __forceinline__ void tb_step(TbState& s, int rd, int q4, int hp,
 #pragma unroll
   for (int r = 0; r < kLanes; ++r) {
     s.m2[r] = min(s.m2[r], min(s.i2[r], s.d2[r]));
-    if (CAPTURE && exit_base == r - K) vo = s.m2[r];
+    if (exit_base == r - K) vo = s.m2[r];
   }
 #pragma unroll
   for (int r = 0; r < kLanes; ++r) {
@@ -167,29 +168,26 @@ __device__ __forceinline__ void tb_step(TbState& s, int rd, int q4, int hp,
     stamp(s.m2[r], s.i2[r], s.d2[r]);
     out[r * p.stride] = (uint16_t)word[r];
   }
-  if (CAPTURE) {
-    const int t2 = 2 * (t0 + K);
-    if (ve < s.best) {
-      s.best = ve;
-      s.best_idx = t2;
-    }
-    if (vo < s.best) {
-      s.best = vo;
-      s.best_idx = t2 + 1;
-    }
+  const int t2 = 2 * (t0 + K);
+  if (ve < s.best) {
+    s.best = ve;
+    s.best_idx = t2;
+  }
+  if (vo < s.best) {
+    s.best = vo;
+    s.best_idx = t2 + 1;
   }
 }
 
 // Steps t0 .. t0+N-1; a TAIL block (the last, which may run past the
 // label block) stops at n_steps.
-template <int N, bool INIT, bool CAPTURE, bool TAIL = false, int K = 0>
+template <int N, bool INIT, bool TAIL = false, int K = 0>
 __device__ __forceinline__ void tb_block(TbState& s, const Steps<N>& in,
                                          int t0, const TbPair& p) {
   if constexpr (K < N) {
     if (TAIL && t0 + K >= p.n_steps) return;
-    tb_step<K, INIT, CAPTURE>(s, in.rd[K], in.q4[K], in.hp[K], in.g4[K], t0,
-                              p);
-    tb_block<N, INIT, CAPTURE, TAIL, K + 1>(s, in, t0, p);
+    tb_step<K, INIT>(s, in.rd[K], in.q4[K], in.hp[K], in.g4[K], t0, p);
+    tb_block<N, INIT, TAIL, K + 1>(s, in, t0, p);
   } else if constexpr (N % kLanes != 0) {
     rotate<N>(s.rb);
     rotate<N>(s.qb);
@@ -199,12 +197,10 @@ __device__ __forceinline__ void tb_block(TbState& s, const Steps<N>& in,
   }
 }
 
-// Every step of one pair.  `lo` / `hi` are the warp's least and largest
-// read_len (warp-uniform, so every lane takes the same blocks): a block
-// captures exit cells iff it meets steps lo .. hi + 7.
+// Every step of one pair: the first block of 8, blocks of kUnroll, and a
+// last block of fewer steps where L2 is not a multiple of kUnroll.
 __device__ __forceinline__ void tb_run(PairLoader& ld, const TbPair& p,
-                                       int lo, int hi, int& score,
-                                       int& idx) {
+                                       int& score, int& idx) {
   TbState s;
 #pragma unroll
   for (int r = 0; r < kLanes; ++r) {
@@ -218,24 +214,19 @@ __device__ __forceinline__ void tb_run(PairLoader& ld, const TbPair& p,
 #pragma unroll
   for (int r = 0; r < kLanes; ++r) s.nb[r] = s.hb[r] == kNChar ? 0 : -1;
   {
-    // One kind of first block, with captures: a second kind measured
-    // slower (more registers and code for 8 steps run once).
     Steps<kLanes> in;
     ld.template fetch<false>(0, in);
-    tb_block<kLanes, true, true>(s, in, 0, p);
+    tb_block<kLanes, true>(s, in, 0, p);
   }
   Steps<kUnroll> in;
   int t0 = kLanes;
   for (; t0 + kUnroll <= p.n_steps; t0 += kUnroll) {
     ld.template fetch<false>(t0, in);
-    if (t0 + kUnroll <= lo || t0 >= hi + kLanes)
-      tb_block<kUnroll, false, false>(s, in, t0, p);
-    else
-      tb_block<kUnroll, false, true>(s, in, t0, p);
+    tb_block<kUnroll, false>(s, in, t0, p);
   }
-  if (t0 < p.n_steps) {  // L2 not a multiple of kUnroll
+  if (t0 < p.n_steps) {
     ld.template fetch<false>(t0, in);
-    tb_block<kUnroll, false, true, true>(s, in, t0, p);
+    tb_block<kUnroll, false, true>(s, in, t0, p);
   }
   score = (s.best + 0x8000) >> 2;  // arithmetic shift, as in the TPU kernel
   idx = s.best_idx;
@@ -255,22 +246,18 @@ band_align_tb_pairs_kernel(const uint8_t* __restrict__ hap_mat,   // [H, L1B]
                            uint16_t* __restrict__ bp,     // [(L2+8)*8, B]
                            int B, int L1B, int L2, int ge, int npr,
                            int rq_aligned, int hg_aligned) {
-  const int lane_b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = min(lane_b, B - 1);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
   const int read_len = __ldg(rlen + b);
   PairLoader ld = pair_loader(hap_mat, go_mat, seq_mat, qual_mat,
                               __ldg(pair_hap + b), __ldg(pair_read + b),
                               __ldg(pair_seg + b), read_len, L1B, L2,
                               rq_aligned, hg_aligned);
   const TbPair p{read_len, L2 + kLanes, ge, npr, bp + b, (size_t)B};
-  const int lo = __reduce_min_sync(0xffffffffu, read_len);
-  const int hi = __reduce_max_sync(0xffffffffu, read_len);
   int score, idx;
-  tb_run(ld, p, lo, hi, score, idx);
-  if (lane_b < B) {
-    score_out[b] = score;
-    idx_out[b] = idx;
-  }
+  tb_run(ld, p, score, idx);
+  score_out[b] = score;
+  idx_out[b] = idx;
 }
 
 }  // namespace
