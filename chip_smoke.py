@@ -737,19 +737,20 @@ def tb_bytes(mats, index):
 
 def check_tb_equal(what, args):
     """K2's pair entry against its plain version on `args`: score, exit
-    index and the whole label block bitwise.  Returns the kernel's
-    outputs."""
+    index and the whole label block bitwise.  Returns (the kernel's
+    outputs, max |diff|)."""
     from platypus_tpu_torch.ops import align_cuda, align_torch
 
     got = align_cuda.band_align_traceback_pairs(*args)
     want = align_torch.band_align_traceback_pairs_reference(*args)
+    err = 0
     for name, g, w in zip(("score", "idx", "labels"), got, want):
         if g.dtype != w.dtype or g.shape != w.shape:
             raise AssertionError(f"{what}: {name} is {g.dtype} {tuple(g.shape)}"
                                  f", its plain version {w.dtype} "
                                  f"{tuple(w.shape)}")
-        check_equal(f"{what}: {name}", g, w)
-    return got
+        err = max(err, check_equal(f"{what}: {name}", g, w))
+    return got, err
 
 
 def check_tb_kernel(device):
@@ -775,9 +776,10 @@ def check_tb_kernel(device):
     cases += [(f"ties L2={L2}", pair_inputs(tie_pairs(70 + L2, 2000, L2),
                                             device, width=L2 + 28))
               for L2 in (100, 128)]
-    n_pairs = 0
+    n_pairs = max_err = 0
     for what, args in cases:
-        got = check_tb_equal(f"K2 pair entry, {what}", args)
+        got, err = check_tb_equal(f"K2 pair entry, {what}", args)
+        max_err = max(max_err, err)
         n_pairs += len(args[7])
         if what == "flank goldens":
             bad = flank_golden_mismatches(golden_cases,
@@ -801,7 +803,7 @@ def check_tb_kernel(device):
             lambda args=args: align_torch.band_align_traceback_pairs_reference(
                 *args),
             args[7], TIMED_L2 + 8, tb_bytes(args[:4], args[4:]))
-    return dict(max_abs_err=0, **reports[TIMED_B])
+    return dict(max_abs_err=max_err, **reports[TIMED_B])
 
 
 def build_dataset(kind, workdir, *args):

@@ -17,7 +17,8 @@
 // * ptt_band_align_pairs, the main path: the deduplicated uint8 matrices
 //   hap / gap-open [H, L1B] and read / quality [A, L2] with int32 pair
 //   rows (hap, read, segment start, read length) [B].  Each thread reads
-//   its own pair's bytes from the matrices and applies gather/pad's
+//   its own pair's bytes from the matrices (pair_loader.cuh's PairLoader,
+//   shared with K2) and applies gather/pad's
 //   sentinels itself ('N' hap from column read_len + 15 on, columns
 //   clamped to L1B - 1, gap-open past the read held at column
 //   read_len + 14, read '0' and quality 64 from read_len on).

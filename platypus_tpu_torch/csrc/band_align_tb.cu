@@ -40,9 +40,10 @@
 //   ascending are steps ascending, and a strict `<` update, even phase
 //   before odd, keeps the first strict minimum the TPU kernel resolves
 //   after its loop.  best starts above every cell, so row 0 always sets
-//   it.  A capture costs about 3% of a step; blocks without captures
-//   beside them (warp-uniform, from the warp's least and largest read_len)
-//   took more registers and code and measured slower.
+//   it.  Each phase picks its exit row's cell by a select tree on the
+//   row's bits (7 selects).  Blocks without captures beside them
+//   (warp-uniform, from the warp's least and largest read_len) took 255
+//   registers and more code and measured 18-60% slower.
 // * A row's label word is built from the six cells' low bits by five bit
 //   selects (one LOP3 each) of the cells shifted to their fields, whose
 //   zero low bits fill the gaps; bits above 15 are never stored.  The d1
@@ -93,14 +94,24 @@ __device__ __forceinline__ void stamp(int& m, int& i, int& d) {
   d |= 3;
 }
 
+// v[row], or kNoExit for a row outside 0..7: a select tree on row's bits.
+__device__ __forceinline__ int pick(const int* v, int row) {
+  const bool b0 = row & 1, b1 = row & 2, b2 = row & 4;
+  const int a0 = b0 ? v[1] : v[0], a1 = b0 ? v[3] : v[2];
+  const int a2 = b0 ? v[5] : v[4], a3 = b0 ? v[7] : v[6];
+  const int c0 = b1 ? a1 : a0, c1 = b1 ? a3 : a2;
+  const int c = b2 ? c1 : c0;
+  return (unsigned)row < kLanes ? c : kNoExit;
+}
+
 // Step t = t0 + K, K compile-time.  INIT: the block of steps 0-7 (t == K).
 // Row t - read_len, if in 0..7, holds the pair's exit cell at this step.
 template <int K, bool INIT>
 __device__ __forceinline__ void tb_step(TbState& s, int rd, int q4, int hp,
                                         int g4, int t0, const TbPair& p) {
   const int ge = p.ge, npr = p.npr;
-  // Row r holds the exit cell of this step iff exit_base == r - K.
-  const int exit_base = t0 - p.read_len;
+  // The row holding this step's exit cell, if it is in 0..7.
+  const int exit_row = t0 + K - p.read_len;
   // ---- even phase: step t's read enters in slot K --------------------
   s.rb[K] = rd;
   s.qb[K] = q4;
@@ -108,12 +119,10 @@ __device__ __forceinline__ void tb_step(TbState& s, int rd, int q4, int hp,
     s.m1[K] = -0x8000;
     s.m2[K] = -0x8000;
   }
-  int ve = kNoExit, vo = kNoExit;
 #pragma unroll
-  for (int r = 0; r < kLanes; ++r) {
+  for (int r = 0; r < kLanes; ++r)
     s.m1[r] = min(s.m1[r], min(s.i1[r], s.d1[r]));
-    if (exit_base == r - K) ve = s.m1[r];
-  }
+  const int ve = pick(s.m1, exit_row);
   int d1n[kLanes - 1];
 #pragma unroll
   for (int r = 0; r < kLanes; ++r) {
@@ -141,10 +150,9 @@ __device__ __forceinline__ void tb_step(TbState& s, int rd, int q4, int hp,
   s.gb[K] = g4;
   s.nb[K] = hp == kNChar ? 0 : -1;
 #pragma unroll
-  for (int r = 0; r < kLanes; ++r) {
+  for (int r = 0; r < kLanes; ++r)
     s.m2[r] = min(s.m2[r], min(s.i2[r], s.d2[r]));
-    if (exit_base == r - K) vo = s.m2[r];
-  }
+  const int vo = pick(s.m2, exit_row);
 #pragma unroll
   for (int r = 0; r < kLanes; ++r) {
     const int c = (K + 1 + r) & 7;

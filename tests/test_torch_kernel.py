@@ -163,7 +163,7 @@ def test_tb_kernel_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tb(hap, go, seq, qual, ph[::2], pr[::2], ps[::2], rl[::2])
     with pytest.raises(ValueError, match="int32 on"):
-        tb(hap, go, seq, qual, ph, pr, ps, rl.cpu())
+        tb(hap, go, seq, qual, ph, pr.cpu(), ps, rl)
 
 
 class _CudaLike:
