@@ -95,7 +95,20 @@ the JAX package.  Phases:
    step on a 2-shard mesh of cuda:0 against a 1-shard one;
 15. distributed: --distributed=1 as two fresh processes under torchrun's
    environment (gloo; rank r on cuda:{r % cards}) over the slice, merged
-   byte-identical to the reference.
+   byte-identical to the reference;
+16. infer thread: the slice in this process four times, in turns inline,
+   PLATYPUS_TPU_INFER_THREAD=1 (begin and finish on the ptpu-infer
+   thread), the thread, inline, each launching K1, with each wall and its
+   device_inference, device_alignment and window_finish; then a fresh
+   port CLI with the thread that reports its launches; all five
+   byte-identical to phase 5's reference;
+17. trace: one 100 kb region of the slice in this process inside
+   observability.trace("slice_region") with PLATYPUS_TPU_TRACE_DIR set,
+   byte-identical to the reference on that region; the *.pt.trace.json it
+   wrote must hold GPU kernel events, K1's among them; prints the traced
+   window, the device-busy time (the union of kernel, memcpy and memset
+   intervals) and idle share, the kernel count, the host time in the
+   kernel-launch calls and the top 10 device ops.
 
 Any ERROR record on the `platypus_tpu` logger fails the run (every
 crash-containment path logs there), and so does a module of the JAX
@@ -115,6 +128,7 @@ summary of the walls.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import statistics
@@ -1258,6 +1272,158 @@ def check_distributed(info, region, smi):
           f"lines byte-identical to the reference", flush=True)
 
 
+@contextlib.contextmanager
+def scoped_env(name, value):
+    """Environment variable `name` set to `value` in this process while
+    entered; its previous state restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def check_infer_thread(info, region, smi):
+    """Phase 16: the slice in this process with PLATYPUS_TPU_INFER_THREAD
+    in turns 0, 1, 1, 0 (inline; begin and finish on the ptpu-infer
+    thread), each run's K1 launches counted from zero, then one fresh port
+    CLI with the thread under BLOCKER; every run's data lines equal phase
+    5's reference's.  Prints each wall with its device_inference,
+    device_alignment and window_finish (host-clock stage timers, which in
+    thread mode overlap prepare on the other thread)."""
+    from platypus_tpu_torch.engine.region import metrics
+
+    workdir = info["workdir"]
+    runs, outs = [], []
+    for k, mode in enumerate(("0", "1", "1", "0")):
+        out = os.path.join(workdir, f"port_thread_{k}.vcf")
+        with scoped_env("PLATYPUS_TPU_INFER_THREAD", mode):
+            wall, counts = run_port(cli_args(info, region, out))
+        if counts["band_align"] <= 0:
+            raise AssertionError(f"infer thread: run {k} (mode {mode}) "
+                                 f"launched no K1: {counts}")
+        timers = {name: metrics.timers[name] for name in (
+            "device_inference", "device_alignment", "window_finish")}
+        runs.append((mode, wall, counts["band_align"], timers))
+        outs.append(out)
+    cli_out = os.path.join(workdir, "port_cli_thread.vcf")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", COUNTED_CLI,
+                           *cli_args(info, region, cli_out)], cwd=REPO,
+                          env=port_env(PLATYPUS_TPU_INFER_THREAD="1"),
+                          capture_output=True, text=True, timeout=900)
+    cli_wall = time.perf_counter() - t0
+    cli_launches, _ = counted_result(proc, f"{cli_out}.log")
+    if cli_launches["band_align"] <= 0:
+        raise AssertionError(f"infer thread: the fresh CLI launched no K1: "
+                             f"{cli_launches}")
+    n_lines = check_same_calls("infer thread", os.path.join(
+        workdir, "reference.vcf"), *outs, cli_out)
+    mean = {mode: statistics.mean(wall for m, wall, _, _ in runs if m == mode)
+            for mode in ("0", "1")}
+    print(f"infer thread: slice on {smi} in this process, in turns: "
+          + "; ".join(
+              f"{'thread' if mode == '1' else 'inline'} {wall:.6f} s ({n} K1 "
+              f"launches, " + ", ".join(f"{name} {t:.6f} s"
+                                        for name, t in timers.items()) + ")"
+              for mode, wall, n, timers in runs)
+          + f"; thread / inline mean wall {mean['1'] / mean['0']:.4f}; fresh "
+          f"port CLI with the thread {cli_wall:.6f} s ({cli_launches['band_align']}"
+          f" K1 launches); {n_lines} VCF data lines byte-identical to the "
+          f"reference in all five runs", flush=True)
+
+
+def trace_summary(path, symbols):
+    """The numbers of a torch.profiler Chrome trace: its window (first
+    event's start to last event's end), the device-busy time (the union of
+    its GPU kernel, memcpy and memset intervals) and idle share, the CUDA
+    kernel count, the host time in the kernel-launch API calls, the ten
+    device ops with the most total time, and the kernel events whose name
+    holds one of `symbols`."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    gpu = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    busy, reach = 0.0, start
+    for e in sorted(gpu, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], reach), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            reach = hi
+    kernels = [e for e in gpu if e["cat"] == "kernel"]
+    launch_api = [e for e in events if e.get("cat") == "cuda_runtime"
+                  and e["name"].startswith(("cudaLaunchKernel",
+                                            "cuLaunchKernel"))]
+    by_op = {}
+    for e in gpu:
+        total, n = by_op.get(e["name"], (0.0, 0))
+        by_op[e["name"]] = (total + e["dur"], n + 1)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:10]
+    return dict(
+        window_ms=(end - start) / 1e3, busy_ms=busy / 1e3,
+        idle_share=1 - busy / (end - start), kernels=len(kernels),
+        launch_calls=len(launch_api),
+        launch_api_ms=sum(e["dur"] for e in launch_api) / 1e3,
+        top=[(name[:80], round(total / 1e3, 6), n)
+             for name, (total, n) in top],
+        matched=sum(any(s in e["name"] for s in symbols) for e in kernels))
+
+
+def check_trace(info, smi):
+    """Phase 17: the port on one 100 kb region of the slice in this
+    process inside observability.trace("slice_region"), with
+    PLATYPUS_TPU_TRACE_DIR set to a new directory; its data lines equal
+    the CPU-pinned reference's on the same region, and the trace it wrote
+    must hold GPU kernel events and K1's among them."""
+    import glob
+
+    from platypus_tpu_torch.ops import align_cuda
+    from platypus_tpu_torch.utils import observability
+
+    workdir = info["workdir"]
+    region = "chr20:1000-101000"
+    trace_dir = tempfile.mkdtemp(prefix="trace_", dir=workdir)
+    out = os.path.join(workdir, "port_trace.vcf")
+    with scoped_env("PLATYPUS_TPU_TRACE_DIR", trace_dir):
+        t0 = time.perf_counter()
+        with observability.trace("slice_region"):
+            wall, counts = run_port(cli_args(info, region, out))
+        traced = time.perf_counter() - t0
+    ref_out = os.path.join(workdir, "reference_trace.vcf")
+    run_reference(cli_args(info, region, ref_out))
+    n_lines = check_same_calls("trace", ref_out, out)
+    files = glob.glob(os.path.join(trace_dir, "slice_region", "*.pt.trace.json"))
+    if len(files) != 1 or counts["band_align"] <= 0:
+        raise AssertionError(f"trace: {files} written, {counts['band_align']} "
+                             f"K1 launches")
+    # A kernel function's name is its C entry's without the ptt_ prefix,
+    # with _kernel after it (csrc/band_align.cu).
+    symbols = [entry[len("ptt_"):] + "_kernel"
+               for entry in align_cuda.KERNELS["band_align"].entries]
+    summary = trace_summary(files[0], symbols)
+    if summary["kernels"] <= 0 or summary["matched"] <= 0:
+        raise AssertionError(f"trace: no GPU kernel event or none of K1 "
+                             f"({symbols}): {summary}")
+    print(f"trace: {region} on {smi} in this process, {wall:.6f} s "
+          f"({traced:.6f} s with the profiler's start and trace write), "
+          f"{counts['band_align']} K1 launches, {counts['batches']} "
+          f"fused-inference batches, {n_lines} VCF data lines byte-identical "
+          f"to the reference; trace {os.path.getsize(files[0])} bytes: window "
+          f"{summary['window_ms']:.3f} ms, device busy {summary['busy_ms']:.3f}"
+          f" ms, idle share {summary['idle_share']:.4f}, {summary['kernels']} "
+          f"CUDA kernels ({summary['matched']} of K1), {summary['launch_calls']}"
+          f" kernel-launch API calls taking {summary['launch_api_ms']:.3f} ms "
+          f"of host time; top device ops (name, ms, count): {summary['top']}",
+          flush=True)
+
+
 def check_same_calls(what, ref_out, *port_outs):
     """Every port VCF's data lines byte-identical to the reference's;
     returns the number of data lines."""
@@ -1513,6 +1679,12 @@ def main() -> int:
     check_dryrun(smi, torch.device("cuda", 0))
     check_distributed(info, region, smi)
     errors.check("mesh, dry run, distributed")
+
+    # 16-17. the inference thread, and a profiler trace of one region
+    check_infer_thread(info, region, smi)
+    errors.check("infer thread")
+    check_trace(info, smi)
+    errors.check("trace")
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "platypus_tpu"))
     if leaked:

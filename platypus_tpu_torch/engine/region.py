@@ -8,7 +8,8 @@ left-normalised, merged and support-filtered, then clustered into windows
 which are called and written out.
 
 A region runs in three stages, prepare -> begin -> finish, so the runner
-can overlap one region's device work with the next one's host work.  On a
+can overlap one region's device work with the next one's host work
+(call_variants_in_region runs them back to back).  On a
 torch device every device stage (the alignment dispatch, its finalize, the
 fused inference's dispatch and its gather, and with --meshDevices the
 mesh's region step, parallel/mesh.py) runs inside device_stage, so
@@ -304,6 +305,27 @@ class PreparedRegion:
             setattr(self, k, v)
 
 
+def call_variants_in_region(
+    chrom: str,
+    start: int,
+    end: int,
+    bam_files: Sequence[BamFile],
+    samples_by_bam,
+    ref_file,
+    config: PlatypusConfig,
+    rt: RuntimeState,
+    writer,
+    device,
+) -> int:
+    """Full region pipeline on `device` (None: the host path); returns the
+    number of VCF lines written."""
+    state = prepare_region_call(chrom, start, end, bam_files, samples_by_bam,
+                                ref_file, config, rt, device)
+    if state is None:
+        return 0
+    return finish_region_call(state, ref_file, config, writer, device)
+
+
 class RegionPrefetch:
     """BAM decode for the NEXT region running on a helper thread.
 
@@ -444,14 +466,14 @@ def prepare_region_call(
             )
             prepared[w_idx] = "skip"
 
-    metrics.timers["window_prepare"] += time.perf_counter() - prep_t0
+    metrics.add("window_prepare", time.perf_counter() - prep_t0)
 
     # Phase 2 (device): dispatch every window's alignments in a few big
     # batched calls; results are awaited in begin_region_inference.
     live = [(w_idx, p) for w_idx, p in prepared.items() if p not in (None, "skip")]
     prep_t1 = time.perf_counter()
     fill_deferred_pairs([p.request for _, p in live])
-    metrics.timers["window_prepare"] += time.perf_counter() - prep_t1
+    metrics.add("window_prepare", time.perf_counter() - prep_t1)
     metrics.count("windows", len(windows))
     metrics.count("alignment_pairs",
                   sum(p.request.n_pairs() for _, p in live if p.request is not None))
@@ -659,7 +681,7 @@ def finish_region_call(state, ref_file, config: PlatypusConfig, writer,
                 "Exception in window %s:%s-%s: %s", chrom, window.start_pos, window.end_pos, exc
             )
     writer.drain()  # flush the 100-line look-ahead before region handoff
-    metrics.timers["region_total"] += time.perf_counter() - state.region_t0
+    metrics.add("region_total", time.perf_counter() - state.region_t0)
     if config.verbosity >= 3 or os.environ.get("PLATYPUS_TPU_METRICS"):
         metrics.log_summary(f"region {chrom}:{start}-{end} cumulative: ")
     return n_written

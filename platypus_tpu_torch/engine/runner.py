@@ -53,7 +53,9 @@ import os
 import re
 import signal
 import sys
+import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..config import PlatypusConfig, derive_runtime
@@ -186,7 +188,16 @@ def run_single_process(
     happen only in finish_region_call.  A region whose host stages raise
     is logged and skipped; a DeviceError stops the run.
     `on_region_done(region)` is called once per region, after its lines
-    are flushed or once it was skipped (runner.py:227-237)."""
+    are flushed or once it was skipped (runner.py:227-237).
+
+    Begin (k-1) and finish (k-2) run inline, after region k is prepared,
+    unless PLATYPUS_TPU_INFER_THREAD=1 (runner.py:199-218): then they run
+    as one stage on a `ptpu-infer` helper thread while this thread
+    prepares region k+1, each stage waited for before the next is
+    submitted, so writes stay in region order.  The stage's finish reads
+    its own FastaFile, so it does not evict the region cache that
+    prepare slices from.  A DeviceError raised on the thread leaves
+    through the stage's result here and stops the run."""
     bam_files, samples_by_bam, samples = open_bams(config)
     ref_file = FastaFile(config.ref_file, parse_ncbi=bool(config.parse_ncbi))
     rt = derive_runtime(config, n_individuals=len(samples))
@@ -198,10 +209,23 @@ def run_single_process(
     if not append:
         writer.write_header()
 
+    executor = None
+    finish_ref = ref_file
+    if (not config.hla_typing
+            and os.environ.get("PLATYPUS_TPU_INFER_THREAD", "0") == "1"):
+        executor = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="ptpu-infer")
+        finish_ref = FastaFile(config.ref_file,
+                               parse_ncbi=bool(config.parse_ncbi))
+    # With the helper thread, a skipped region's `done` (this thread) may
+    # meet a finished region's (the helper): the callbacks run one at a time.
+    done_lock = threading.Lock()
+
     def done(region) -> None:
         if on_region_done is not None:
-            out.flush()  # the region's lines are durable first
-            on_region_done(tuple(region))
+            with done_lock:
+                out.flush()  # the region's lines are durable first
+                on_region_done(tuple(region))
 
     def begin(state) -> bool:
         try:
@@ -217,7 +241,7 @@ def run_single_process(
 
     def finish(state) -> int:
         try:
-            n = finish_region_call(state, ref_file, config, writer, device)
+            n = finish_region_call(state, finish_ref, config, writer, device)
         except DeviceError:
             raise
         except Exception:  # noqa: BLE001 — region crash containment
@@ -227,11 +251,35 @@ def run_single_process(
         done((state.chrom, state.start, state.end))
         return n
 
+    def stage(aligning, inferring):
+        """begin(k-1), then finish(k-2): (region k-1 if it began, else
+        None; lines written)."""
+        begun = aligning if aligning is not None and begin(aligning) else None
+        return begun, finish(inferring) if inferring is not None else 0
+
+    def submit(aligning, inferring) -> Future:
+        if executor is not None:
+            return executor.submit(stage, aligning, inferring)
+        future = Future()
+        future.set_result(stage(aligning, inferring))
+        return future
+
     region_iter = iter(regions)
     n_written = 0
     aligning = None   # PreparedRegion whose alignments are in flight
-    inferring = None  # PreparedRegion whose inference is in flight
+    staged = None     # the stage of the regions before it (a Future)
     prefetch = None   # next region's BAM decode on a helper thread
+
+    def staged_result():
+        """Wait for the stage in flight; returns the region it began."""
+        nonlocal n_written, staged
+        if staged is None:
+            return None
+        begun, n = staged.result()
+        staged = None
+        n_written += n
+        return begun
+
     try:
         if config.hla_typing:
             return run_hla_regions(config, region_iter, bam_files,
@@ -264,13 +312,11 @@ def run_single_process(
             if nxt is not None:
                 prefetch = RegionPrefetch(bam_files, samples_by_bam, *nxt,
                                           config)
-            if aligning is not None and not begin(aligning):
-                aligning = None
-            if inferring is not None:
-                n_written += finish(inferring)
-            inferring, aligning = aligning, state
+            staged = submit(aligning, staged_result())
+            aligning = state
             cur = nxt
             index += 1
+        inferring = staged_result()
         if inferring is not None:
             n_written += finish(inferring)
         if aligning is not None and begin(aligning):
@@ -278,6 +324,11 @@ def run_single_process(
     finally:
         if prefetch is not None:
             prefetch.join()
+        if executor is not None:
+            # A stage still running (this thread raised) ends before the
+            # output closes; none waiting starts.
+            executor.shutdown(wait=True, cancel_futures=True)
+            finish_ref.close()
         if output_path != "-":
             out.close()
         for bam in bam_files:

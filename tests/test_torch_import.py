@@ -295,3 +295,93 @@ def test_port_runs_with_jax_package_blocked(tmp_path, small_region):
     assert pool_summary(f"{outs[1]}.log")["host"] >= 1
     for out in outs:
         assert data_lines(out) == want
+
+
+# Modules of the JAX package that the port carries under another name.
+RENAMED = {
+    "ops/align_jax.py": ["ops/align_torch.py", "ops/align_cuda.py"],
+    "ops/align_pallas.py": ["csrc/band_align.cu", "csrc/band_align_tb.cu"],
+    "ops/likelihood_jax.py": ["ops/likelihood_torch.py"],
+}
+# PLATYPUS_TPU_* variables the JAX package reads and the port does not:
+# variable -> (the JAX package's file that reads it, why the port has no
+# use for it).  Each is TPU-tunnel or backend-routing machinery that the
+# port's explicit device replaces.
+NOT_PORTED = {
+    "PLATYPUS_TPU_HYBRID_PROBE": (
+        "engine/runner.py", "the 1 MB upload health probe of a device worker "
+        "on a tunnelled TPU; the port's device worker owns its card with one "
+        "allocation before it claims"),
+    "PLATYPUS_TPU_NATIVE_ALIGN": (
+        "engine/score.py", "native or XLA alignment by the JAX backend; the "
+        "port aligns natively on the host path (device None) and with K1 on "
+        "a torch device"),
+    "PLATYPUS_TPU_DEVICE_FLANK": (
+        "engine/score.py", "the Pallas traceback kernel only on the TPU "
+        "backend; the port's flank path follows its device: K2 on a torch "
+        "device, the scalar path on the host"),
+    "PLATYPUS_TPU_PLATFORM": (
+        "cli.py", "pins the JAX backend; the port's entry points take an "
+        "explicit torch device"),
+    "PLATYPUS_TPU_NO_REEXEC": (
+        "cli.py", "opts out of the CPU re-exec that strips the TPU plugin's "
+        "trigger; the port loads no plugin and never re-executes"),
+    "_PLATYPUS_TPU_REEXECED": (
+        "cli.py", "marks the re-executed CPU process; as above"),
+    "PLATYPUS_TPU_SERVICE_PLATFORM": (
+        "engine/device_service.py", "forces the JAX service's backend; the "
+        "port's service runs on the run's torch device"),
+    "PLATYPUS_TPU_JAX_CACHE": (
+        "ops/align_jax.py", "XLA's persistent compile cache; the port "
+        "compiles no XLA program (its kernels build once into _build/)"),
+    "PLATYPUS_TPU_NATIVE_LIB": (
+        "native/__init__.py", "names a prebuilt native library of the JAX "
+        "package; the port's own is named by PLATYPUS_TPU_TORCH_NATIVE_LIB"),
+}
+_ENV = re.compile(r"(?<![A-Za-z0-9_])_?PLATYPUS_TPU_[A-Z0-9_]+")
+
+
+def _tree(root, suffix=".py"):
+    """Paths under `root`, relative to it, of its files ending in suffix."""
+    return sorted(os.path.relpath(os.path.join(d, f), root).replace(os.sep, "/")
+                  for d, _dirs, files in os.walk(root) for f in files
+                  if f.endswith(suffix))
+
+
+def _env_vars(root):
+    """The PLATYPUS_TPU_* names in each .py file under `root`."""
+    found = {}
+    for rel in _tree(root):
+        with open(os.path.join(root, rel)) as fh:
+            for name in _ENV.findall(fh.read()):
+                found.setdefault(name, set()).add(rel)
+    return found
+
+
+def test_every_jax_package_module_has_a_port_counterpart():
+    """Every module of platypus_tpu has a file of the port at the same
+    relative path, or its counterparts in RENAMED."""
+    jax_dir = os.path.join(REPO, "platypus_tpu")
+    missing = []
+    for rel in _tree(jax_dir):
+        targets = RENAMED.get(rel, [rel])
+        if not all(os.path.exists(os.path.join(PKG_DIR, t)) for t in targets):
+            missing.append((rel, targets))
+    assert not missing, missing
+    assert all(os.path.exists(os.path.join(jax_dir, rel)) for rel in RENAMED)
+
+
+def test_every_jax_package_variable_is_read_or_listed():
+    """Every PLATYPUS_TPU_* variable of the JAX package is read by the port
+    or listed in NOT_PORTED, whose entries the JAX package reads where
+    they say and the port does not read."""
+    jax_vars = _env_vars(os.path.join(REPO, "platypus_tpu"))
+    port_vars = _env_vars(PKG_DIR)
+    unported = sorted(set(jax_vars) - set(port_vars) - set(NOT_PORTED))
+    assert not unported, unported
+    for name, (path, reason) in NOT_PORTED.items():
+        assert path in jax_vars.get(name, ()), (name, path)
+        assert name not in port_vars, (name, port_vars[name])
+        assert reason
+    for name in ("PLATYPUS_TPU_INFER_THREAD", "PLATYPUS_TPU_TRACE_DIR"):
+        assert name in port_vars

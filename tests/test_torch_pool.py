@@ -12,6 +12,7 @@ imports, blocks jax and can slow the host workers down.
 """
 
 import os
+import threading
 from unittest import mock
 
 import pytest
@@ -148,6 +149,16 @@ def _fail_at(start, fn):
     return wrapped
 
 
+def _fail_state_at(start, fn):
+    """fn(state, ...), raising a host error for the prepared region that
+    starts at `start`."""
+    def wrapped(state, *args, **kwargs):
+        if state.start == start:
+            raise ValueError("injected host fault")
+        return fn(state, *args, **kwargs)
+    return wrapped
+
+
 def _fail_pairs_at(start, fn):
     """fill_deferred_pairs, raising for the requests of the region at
     `start` (found through their haplotypes' variants)."""
@@ -160,19 +171,31 @@ def _fail_pairs_at(start, fn):
     return wrapped
 
 
-# stage -> (JAX package's module and name, the port's module and name)
+# stage -> (JAX package's module and name, the port's module and name);
+# the first three fail in prepare, "finish" in the stage that writes (on
+# the ptpu-infer thread with PLATYPUS_TPU_INFER_THREAD=1)
 HOST_STAGES = {
     "candidates": (jax_region, port_region, "generate_variants_in_region"),
     "windows": (jax_region, port_region, "generate_windows"),
     "pair_voting": (jax_score, port_region, "fill_deferred_pairs"),
+    "finish": (jax_region, port_runner, "finish_region_call"),
 }
 
 
-@pytest.mark.parametrize("stage", sorted(HOST_STAGES))
-def test_region_containment_matches_jax(tmp_path, dataset, stage):
-    """A host fault in one region's candidate generation, windowing or pair
-    voting: the JAX package logs and skips the region, and so does the
-    port, so both VCFs agree and lack that region's call."""
+def _modes(cases):
+    """Each case inline (PLATYPUS_TPU_INFER_THREAD=0, under its own id)
+    and with the inference thread (id suffix -thread)."""
+    return [pytest.param(case, mode, id=case + suffix)
+            for case in cases for mode, suffix in (("0", ""), ("1", "-thread"))]
+
+
+@pytest.mark.parametrize("stage,thread", _modes(sorted(HOST_STAGES)))
+def test_region_containment_matches_jax(tmp_path, dataset, stage, thread,
+                                        monkeypatch):
+    """A host fault in one region's candidate generation, windowing, pair
+    voting or finish: the JAX package logs and skips the region, and so
+    does the port, inline and with the inference thread, so both VCFs
+    agree and lack that region's call."""
     workdir, ref_path = dataset
     jax_mod, port_mod, name = HOST_STAGES[stage]
     start = 8999  # the 2 kb region holding the deletion at 9100
@@ -180,8 +203,11 @@ def test_region_containment_matches_jax(tmp_path, dataset, stage):
     jax_out, port_out = str(tmp_path / "jax.vcf"), str(tmp_path / "port.vcf")
     if stage == "pair_voting":
         inject = lambda fn: _fail_pairs_at(start, fn)  # noqa: E731
+    elif stage == "finish":
+        inject = lambda fn: _fail_state_at(start, fn)  # noqa: E731
     else:
         inject = lambda fn: _fail_at(start, fn)  # noqa: E731
+    monkeypatch.setenv("PLATYPUS_TPU_INFER_THREAD", thread)
     with mock.patch.object(jax_mod, name, inject(getattr(jax_mod, name))):
         assert jax_cli(cli_args(workdir, ref_path, jax_out,
                                 ["--deviceInference=0", SHARDS])) == 0
@@ -193,7 +219,10 @@ def test_region_containment_matches_jax(tmp_path, dataset, stage):
     assert data_lines(port_out) == want
     assert len(want) == len(full) - 1
     with open(f"{port_out}.log") as fh:
-        assert "Region chr20:8999-10999 will be skipped" in fh.read()
+        log = fh.read()
+    assert "Region chr20:8999-10999 will be skipped" in log
+    assert log.count("will be skipped") == 1
+    assert not [t for t in threading.enumerate() if t.name.startswith("ptpu-infer")]
 
 
 def _raise_cuda_error(*args, **kwargs):
@@ -209,13 +238,31 @@ DEVICE_STAGES = {
 }
 
 
-@pytest.mark.parametrize("stage", sorted(DEVICE_STAGES))
-def test_device_stage_failure_stops_the_run(tmp_path, dataset, stage):
+class _CountedFasta(port_runner.FastaFile):
+    """The runner's FastaFile, recording which handles were left open."""
+
+    open_handles = set()
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.open_handles.add(self)
+
+    def close(self):
+        self.open_handles.discard(self)
+        super().close()
+
+
+@pytest.mark.parametrize("stage,thread", _modes(sorted(DEVICE_STAGES)))
+def test_device_stage_failure_stops_the_run(tmp_path, dataset, stage, thread,
+                                            monkeypatch):
     """A failure in any device stage of the region pipeline leaves as
-    DeviceError, which the region containment lets through: the run
-    raises and no region is skipped."""
+    DeviceError, which the region containment lets through, inline and
+    from the inference thread: the run raises, no region is skipped or
+    written, and the helper thread and every FASTA handle are closed."""
     workdir, ref_path = dataset
     out = str(tmp_path / "fail.vcf")
+    monkeypatch.setenv("PLATYPUS_TPU_INFER_THREAD", thread)
+    monkeypatch.setattr(port_runner, "FastaFile", _CountedFasta)
     with mock.patch.object(*DEVICE_STAGES[stage], _raise_cuda_error):
         with pytest.raises(DeviceError, match="CUDA error 700"):
             port_cli.main(cli_args(workdir, ref_path, out,
@@ -223,6 +270,45 @@ def test_device_stage_failure_stops_the_run(tmp_path, dataset, stage):
                           device="cpu")
     with open(f"{out}.log") as fh:
         assert "will be skipped" not in fh.read()
+    assert data_lines(out) == []
+    assert not _CountedFasta.open_handles
+    assert not [t for t in threading.enumerate() if t.name.startswith("ptpu-infer")]
+
+
+def _device_error_at(start, fn):
+    """fn(state, ...), raising DeviceError for the region at `start`."""
+    def wrapped(state, *args, **kwargs):
+        if state.start == start:
+            raise DeviceError("device stage failed: CUDA error 700")
+        return fn(state, *args, **kwargs)
+    return wrapped
+
+
+@pytest.mark.parametrize("stage,thread",
+                         _modes(["begin_region_inference", "finish_region_call"]))
+def test_device_error_stops_the_run_at_its_region(tmp_path, dataset, stage,
+                                                  thread, monkeypatch):
+    """A DeviceError in one region's begin or finish, inline or on the
+    inference thread: the run raises, no region after the failed one is
+    written, and the regions before it are (begin k runs before finish
+    k-2 in one stage, so a failed begin leaves k-1 unwritten too)."""
+    workdir, ref_path = dataset
+    start = 8999  # the fifth 2 kb region
+    full = reference_lines(workdir, ref_path, [SHARDS])
+    last = start - 2000 if stage == "begin_region_inference" else start
+    out = str(tmp_path / "fail.vcf")
+    monkeypatch.setenv("PLATYPUS_TPU_INFER_THREAD", thread)
+    monkeypatch.setattr(port_runner, stage,
+                        _device_error_at(start, getattr(port_runner, stage)))
+    with pytest.raises(DeviceError, match="CUDA error 700"):
+        port_cli.main(cli_args(workdir, ref_path, out,
+                               ["--deviceInference=1", SHARDS]), device="cpu")
+    want = [line for line in full if int(line.split("\t")[1]) <= last]
+    assert want and len(want) < len(full)
+    assert data_lines(out) == want
+    with open(f"{out}.log") as fh:
+        assert "will be skipped" not in fh.read()
+    assert not [t for t in threading.enumerate() if t.name.startswith("ptpu-infer")]
 
 
 REFERENCE_HEADER = (
