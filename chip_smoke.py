@@ -14,13 +14,15 @@ the JAX package.  Phases:
 2. build: every kernel library of align_cuda.KERNELS -- K1, the
    banded-alignment DP (csrc/band_align.cu: its pair entry, which gathers
    and pads its pairs from the deduplicated matrices, and its padded
-   entry), and K2, its traceback mode (csrc/band_align_tb.cu: one pair
+   entry), K2, its traceback mode (csrc/band_align_tb.cu: one pair
    entry, the same gather and pad, 16-bit label words; both include
-   csrc/pair_loader.cuh) -- one nvcc each for sm_90a, and the port's
+   csrc/pair_loader.cuh), and the fused window inference
+   (csrc/infer_window.cu: GL/GOF, EM and posteriors in two kernels) --
+   one nvcc each for sm_90a, and the port's
    native host library (platypus_tpu_torch/native/src, g++), all started
    together; prints the native library's path, ptxas's registers and
-   spills, and for each kernel function the longest straight-line run of
-   its SASS (cuobjdump: each kernel's block of 4 steps), beside the
+   spills, and for each DP kernel function the longest straight-line run
+   of its SASS (cuobjdump: each kernel's block of 4 steps), beside the
    operations bound() counts;
 3. kernel: each CUDA kernel bitwise against its plain torch version on
    the card -- every reference golden (K2: the flank goldens, whose
@@ -35,12 +37,24 @@ the JAX package.  Phases:
    back as the host launches them) against its plain version, with its
    bound: the larger of the bytes it must move over the card's memory
    rate and its int32 operations over the card's int32 rate (bound());
+   the fused inference against its plain torch version
+   (likelihood_torch.infer_window_batch) on INFER_SHAPES, two batches of
+   each memory path (shared, and global past 227 KB), within the
+   tolerances of tests/test_torch_likelihood.py (compare_inference:
+   em, freq and ratios skip guard-band windows, which it counts), two
+   launches bitwise equal, then timed: the kernel on the device alone
+   and back to back, the plain version back to back;
 4. slice: `platypus_tpu_torch.cli.main(["callVariants", ...])` on cuda
    over a synthetic 1 Mb, 30x, 100 bp dataset (ten 100 kb regions; built
    by tests/test_torch_smoke_data.py in a child process, as is the HLA
    panel, since their writers belong to the JAX package), with
-   counters showing K1 and the fused inference ran, and the sizes of
-   its K1 launches.  The largest K1 chunk of its first region is kept
+   counters showing K1 and the fused inference kernel ran (and its plain
+   version never did), the sizes of its K1 launches and the windows the
+   f64 guard sent to the host (device_windows_to_host).  Every fused
+   inference batch it launched is kept (InferRecorder): the kernel
+   against its plain version on each, then each timed (kernel on the
+   device alone, plain back to back) beside the bound over the EM
+   iterations each window ran (infer_bound).  The largest K1 chunk of its first region is kept
    (the engine's matrices and index vectors): the pair entry bitwise on
    it, then the old route (the chunk padded to its lane bucket,
    gather/pad and the padded entry) and the new (the pair entry on
@@ -52,6 +66,9 @@ the JAX package.  Phases:
    data lines must be byte-identical to it in both runs.  For a like for
    like time, the port's CLI also runs in a fresh interpreter, as the
    reference does: both walls include interpreter start and imports;
+   then the slice once more with launch_fused_inference pointed at the
+   plain version (in this script only), byte-identical too, which prints
+   its device_windows_to_host beside the kernel's;
 6. flank: the whole slice again with --calculateFlankScore=1, which must
    launch K2 and lower some pair scores by the flank penalty; its K2
    launch sizes are recorded and its first region's largest K2 chunk is
@@ -71,11 +88,13 @@ the JAX package.  Phases:
 9. hybrid: --nCPU=2 --tpuWorkers=1 with the settle gate off and
    --calculateFlankScore=1 on HYBRID_REGION, where the host workers take
    the scalar flank path (~6 ms per pair) while the device worker runs
-   K2: the device worker must call regions and launch K2 there (its own
+   K2: the device worker must call regions and launch K2 and the fused
+   inference kernel there (its own
    counts, reported back through the pool's summary line), and the lines
    must equal the CPU-pinned reference's;
 10. service: --nCPU=2 --tpuWorkers=0 --inferenceService=1 on the slice:
-   the device-owner service must serve windows with no error, and the
+   the device-owner service must serve windows with no error through the
+   fused inference kernel (its stats count the launches), and the
    lines must equal the single-process reference's;
 11. resume: the single-process slice output cut after its middle data
    line, continued by `continueCalling` through the port's CLI and the
@@ -84,8 +103,8 @@ the JAX package.  Phases:
 12. mesh CLI: the slice, and FLANK_REGION with --calculateFlankScore=1,
    each with --meshDevices=-1 through the port's CLI in a fresh
    interpreter that reports its kernel launches: byte-identical to the
-   reference's default runs, with K1 (K2) launched and the [mesh] timers
-   printed;
+   reference's default runs, with K1 (K2) and the fused inference kernel
+   launched and the [mesh] timers printed;
 13. mesh shards: in this process, mesh_call_region over a slice region
    and over FLANK_REGION in flank mode on a 1-shard mesh, a 2-shard mesh
    on cuda:0 and, with two cards or more, a mesh of every card: pair
@@ -98,14 +117,16 @@ the JAX package.  Phases:
    byte-identical to the reference;
 16. infer thread: the slice in this process four times, in turns inline,
    PLATYPUS_TPU_INFER_THREAD=1 (begin and finish on the ptpu-infer
-   thread), the thread, inline, each launching K1, with each wall and its
+   thread), the thread, inline, each launching K1 and the fused
+   inference kernel, with each wall and its
    device_inference, device_alignment and window_finish; then a fresh
    port CLI with the thread that reports its launches; all five
    byte-identical to phase 5's reference;
 17. trace: one 100 kb region of the slice in this process inside
    observability.trace("slice_region") with PLATYPUS_TPU_TRACE_DIR set,
    byte-identical to the reference on that region; the *.pt.trace.json it
-   wrote must hold GPU kernel events, K1's among them; prints the traced
+   wrote must hold GPU kernel events, K1's and the fused inference's
+   among them; prints the traced
    window, the device-busy time (the union of kernel, memcpy and memset
    intervals) and idle share, the kernel count, the host time in the
    kernel-launch calls and the top 10 device ops.
@@ -820,6 +841,349 @@ def check_tb_kernel(device):
     return dict(max_abs_err=max_err, **reports[TIMED_B])
 
 
+# --- the fused window inference (csrc/infer_window.cu) ----------------------
+
+INFER_NAMES = ("lik", "em", "freq", "gof", "ratios", "gl_rel", "em_margin")
+# engine/caller._EM_MARGIN_EPS: a window whose EM margin is under it in
+# either version may stop at another iteration (em, freq and ratios may
+# then differ by up to tol), and the f64 guard sends it to the host.
+EM_MARGIN_EPS = 1e-5
+# Synthetic batches (W, Hb, Rb, I, Vb): two of the shared-memory path and
+# two past 227 KB (Hb = 256 with one individual, Hb = 64 with 30, whose
+# 256 reads give each individual a few).
+INFER_SHAPES = [(16, 12, 96, 1, 6), (8, 24, 192, 3, 4), (4, 256, 64, 1, 3),
+                (6, 64, 256, 30, 4)]
+# Transcendental (MUFU) results per SM per clock and float32 operations
+# per SM per clock (128 FP32 lanes, an FMA counted as two) on Hopper.
+MUFU_PER_SM_CLOCK = 16
+F32_PER_SM_CLOCK = 256
+
+
+def random_windows(seed, W, Hb, Rb, I, Vb):
+    """A padded inference batch as parallel/batch.py builds one (numpy
+    infer_window_batch inputs, h1/h2 int32 genotype_index_pairs(Hb)): W - 1
+    windows of 2..Hb haps and 1..Rb reads with per-read log-likelihoods
+    like the engine's, their reads over I individuals (with I > 2 the last
+    one has none), 1..Vb variants on haps other than the reference; the
+    last window is padding."""
+    import numpy as np
+
+    from platypus_tpu_torch.ops.likelihood import genotype_index_pairs
+
+    rng = np.random.default_rng(seed)
+    ll = np.zeros((W, Hb, Rb), np.float32)
+    oh = np.zeros((W, I, Rb), np.float32)
+    hm = np.zeros((W, Hb), bool)
+    vm = np.zeros((W, Vb, Hb), bool)
+    hr = np.zeros((W, I), bool)
+    for k in range(W - 1):
+        H, R = int(rng.integers(2, Hb + 1)), int(rng.integers(1, Rb + 1))
+        ll[k, :H, :R] = np.maximum(-np.abs(rng.normal(3.0, 4.0, (H, R))),
+                                   -300.0)
+        sample = rng.integers(0, I, R)
+        if I > 2:
+            sample[sample == I - 1] = 0
+        oh[k, sample, np.arange(R)] = 1.0
+        hm[k, :H] = True
+        for v in range(int(rng.integers(1, Vb + 1))):
+            vm[k, v, 1:H] = rng.random(H - 1) < 0.5
+        good = rng.random(R) < 0.9
+        hr[k] = np.bincount(sample[good], minlength=I) > 0
+    h1, h2 = genotype_index_pairs(Hb)
+    return ll, oh, hm, h1.astype(np.int32), h2.astype(np.int32), vm, hr
+
+
+def infer_tolerance(name):
+    """(rtol, atol) of one output, those of tests/test_torch_likelihood.py:
+    both versions run the same f32 algorithm in another summation order."""
+    if name == "ratios":
+        return 0.0, 1e-3
+    if name == "em_margin":
+        return 0.0, 1e-5
+    return 1e-4, 1e-5
+
+
+def compare_inference(got, want):
+    """The seven outputs of two versions as numpy arrays -> (max |got -
+    want| per output over the entries compared, guard-band windows, the
+    outputs that differ).  Shapes, dtypes and the non-finite entries must
+    agree element for element; em, freq and ratios skip the windows whose
+    em_margin is under EM_MARGIN_EPS in either version."""
+    import numpy as np
+
+    margin_ok = np.minimum(got[6], want[6]) >= EM_MARGIN_EPS
+    errs, bad = {}, []
+    for name, g, w in zip(INFER_NAMES, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            bad.append(name)
+            continue
+        if name in ("em", "freq", "ratios"):
+            g, w = g[margin_ok], w[margin_ok]
+        fin = np.isfinite(w)
+        pattern = (np.array_equal(np.isfinite(g), fin)
+                   and np.array_equal(g[~fin], w[~fin], equal_nan=True))
+        rtol, atol = infer_tolerance(name)
+        errs[name] = (float(np.abs(g[fin].astype(np.float64) - w[fin]).max())
+                      if fin.any() else 0.0)
+        if not pattern or not np.allclose(g[fin], w[fin], rtol=rtol,
+                                          atol=atol):
+            bad.append(name)
+    return errs, int((~margin_ok).sum()), bad
+
+
+def infer_work(arrays, iters):
+    """(bytes, transcendentals, f32 operations) the fused inference needs
+    on one batch: numpy inputs `arrays` and the EM iterations each window
+    ran.  Bytes: every input read once, the seven outputs written once.
+    The rest counts each window's own haps (H), genotypes (Gw), reads (R),
+    individuals with reads (n) and variants (V): the exact per-read branch
+    (an exp and a log1p where 1e-3 < |l1 - l2| < 3), the Gw x R x I
+    contraction (two FMAs), one exp per relative likelihood, per EM
+    iteration 2 n Gw + H^2 + 3H exps and n + Gw + H logs, the outputs' exps,
+    and the ratios' n Gw (V + 1) exps; f32 operations ~8 per table entry
+    and iteration."""
+    import numpy as np
+
+    ll, oh, hm, h1, h2, vm, hr = arrays
+    W, I = ll.shape[0], oh.shape[1]
+    G = len(h1)
+    n_bytes = sum(a.nbytes for a in arrays) + 4 * (
+        4 * W * I * G + W * hm.shape[1] + W * vm.shape[1] + W)
+    mufu = flops = 0
+    for w in range(W):
+        H, n, k = int(hm[w].sum()), int(hr[w].sum()), int(iters[w])
+        if H == 0:
+            continue
+        reads = oh[w].any(axis=0)
+        R, V = int(reads.sum()), int(vm[w].any(axis=1).sum())
+        on = (h1 < H) & (h2 < H)
+        Gw = int(on.sum())
+        rows = ll[w][:H][:, reads]
+        diff = np.abs(rows[h1[on]] - rows[h2[on]])
+        exact = (h1[on] != h2[on])[:, None] & (diff > 1e-3) & (diff < 3.0)
+        mufu += 2 * int(exact.sum()) + n * Gw
+        flops += Gw * R * (4 * I + 6) + 4 * I * Gw
+        mufu += k * (2 * n * Gw + n + Gw + H * H + 3 * H)
+        flops += k * (8 * n * Gw + 4 * H * H + 4 * H)
+        mufu += n * Gw + H + (n * Gw + n) + V * (H + 1 + n * (Gw + 1))
+        flops += 5 * n * Gw * (1 + V)
+    return n_bytes, mufu, flops
+
+
+def infer_bound(works):
+    """(bound_ms, bound_by) of the fused inference over batches of
+    infer_work (bytes, transcendentals, f32 operations): the largest of
+    the bytes over the memory rate, the transcendentals over the MUFU rate
+    and the f32 operations over the FP32 rate of card 0 (SMs x per-clock
+    rate x its maximum SM clock)."""
+    import torch
+
+    mhz = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    per_clock = torch.cuda.get_device_properties(0).multi_processor_count \
+        * float(mhz) * 1e6
+    n_bytes, mufu, flops = (sum(w[k] for w in works) for k in range(3))
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "transcendentals": mufu / (MUFU_PER_SM_CLOCK * per_clock) * 1e3,
+             "f32 operations": flops / (F32_PER_SM_CLOCK * per_clock) * 1e3}
+    print(f"bound: infer_window: {n_bytes} bytes ({times['bytes']:.6f} ms), "
+          f"{mufu} transcendentals ({times['transcendentals']:.6f} ms), "
+          f"{flops} f32 operations ({times['f32 operations']:.6f} ms)",
+          flush=True)
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def check_infer_batch(what, args, em_iters=100):
+    """The fused inference kernel against its plain version on one batch
+    of device tensors `args` (infer_window_batch's inputs): every output
+    within its tolerance (compare_inference), a second launch bitwise
+    equal to the first.  Returns (max abs error per output, guard-band
+    windows, EM iterations per window as numpy, the kernel's path)."""
+    import torch
+
+    from platypus_tpu_torch.ops import likelihood_cuda, likelihood_torch
+
+    got, iters = likelihood_cuda.launch(*args, em_iters=em_iters)
+    again, iters2 = likelihood_cuda.launch(*args, em_iters=em_iters)
+    want = likelihood_torch.infer_window_batch(*args, em_iters=em_iters)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((*got, iters), (*again, iters2))):
+        raise AssertionError(f"{what}: two launches of the fused inference "
+                             "kernel gave different bits")
+    errs, guard, bad = compare_inference([t.cpu().numpy() for t in got],
+                                         [t.cpu().numpy() for t in want])
+    if bad:
+        raise AssertionError(f"{what}: fused inference kernel != plain "
+                             f"version in {bad}: {errs}")
+    H, I = args[0].shape[1], args[1].shape[1]
+    return errs, guard, iters.cpu().numpy(), likelihood_cuda.em_path(H, I)
+
+
+def time_infer_batch(args):
+    """(kernel ms on the device alone, launches queued behind a sleep
+    kernel; kernel ms back to back from the host; the plain version's ms
+    back to back from the host; the plain version's ms on the device
+    alone, one call queued behind the hold, or None where it waits for
+    the device inside the call) on one batch."""
+    from platypus_tpu_torch.ops import likelihood_cuda, likelihood_torch
+
+    def plain():
+        return likelihood_torch.infer_window_batch(*args)
+
+    try:
+        plain_device = cuda_ms(plain, 1, hold=True)
+    except RuntimeError:
+        plain_device = None
+    return (cuda_ms(lambda: likelihood_cuda.infer_window_batch(*args), 20,
+                    hold=True),
+            cuda_ms(lambda: likelihood_cuda.infer_window_batch(*args), 20),
+            cuda_ms(plain, 3), plain_device)
+
+
+def fmt_ms(ms):
+    return "not measured (it waits for the device)" if ms is None \
+        else f"{ms:.6f} ms"
+
+
+def describe_batch(args):
+    W, Hb, Rb = args[0].shape
+    return f"W={W} Hb={Hb} Rb={Rb} I={args[1].shape[1]} Vb={args[5].shape[1]}"
+
+
+def check_infer_kernel(device):
+    """Phase 3 for the fused inference: the kernel against its plain
+    version on INFER_SHAPES (both memory paths, padded windows, haps,
+    reads and variants, individuals without reads) and once with
+    em_iters=3, two launches bitwise equal, then each timed."""
+    import torch
+
+    for k, shape in enumerate(INFER_SHAPES):
+        args = [torch.from_numpy(a).to(device)
+                for a in random_windows(200 + k, *shape)]
+        for em_iters in ((100, 3) if k == 1 else (100,)):
+            errs, guard, iters, path = check_infer_batch(
+                f"infer_window, {describe_batch(args)}", args, em_iters)
+            print(f"kernel infer_window: {describe_batch(args)} em_iters="
+                  f"{em_iters}, {path} memory path: within tolerance of the "
+                  f"plain version, two launches bitwise equal; EM iterations "
+                  f"{iters.tolist()}, {guard} guard-band windows; max abs "
+                  f"error " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()),
+                  flush=True)
+        ms, host_ms, plain_ms, plain_device = time_infer_batch(args)
+        print(f"kernel infer_window: {describe_batch(args)}: {ms:.6f} ms on "
+              f"the device, {host_ms:.6f} ms back to back from the host; plain "
+              f"torch {plain_ms:.6f} ms back to back, on the device "
+              f"{fmt_ms(plain_device)}", flush=True)
+
+
+class InferRecorder:
+    """While entered: the inputs of every call of the fused inference's
+    wrapper (likelihood_cuda.infer_window_batch, which
+    parallel/batch.launch_fused_inference imports at each call), kept by
+    reference, and the calls of its plain version through the wrapper's
+    CPU route, which must stay 0 on the card."""
+
+    def __init__(self):
+        from platypus_tpu_torch.ops import likelihood_cuda
+
+        self.batches, self.plain_calls = [], 0
+        self._mod = likelihood_cuda
+        self._wrapper = likelihood_cuda.infer_window_batch
+        self._plain = likelihood_cuda.infer_window_batch_reference
+
+    def __enter__(self):
+        def wrapper(*args, **kwargs):
+            self.batches.append((args, kwargs.get("em_iters", 100)))
+            return self._wrapper(*args, **kwargs)
+
+        def plain(*args, **kwargs):
+            self.plain_calls += 1
+            return self._plain(*args, **kwargs)
+
+        self._mod.infer_window_batch = wrapper
+        self._mod.infer_window_batch_reference = plain
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.infer_window_batch = self._wrapper
+        self._mod.infer_window_batch_reference = self._plain
+
+
+def check_infer_batches(recorder, smi):
+    """The fused inference kernel against its plain version on every batch
+    the slice's main path launched (InferRecorder), then each batch timed:
+    the kernel on the device alone and back to back, the plain version
+    back to back (today's route before this kernel); with the bound over
+    the EM iterations each window ran.  Returns the report fields: times
+    and bound summed over the batches."""
+    if recorder.plain_calls:
+        raise AssertionError(f"slice: the plain inference ran "
+                             f"{recorder.plain_calls} times on the card")
+    if not recorder.batches:
+        raise AssertionError("slice: no fused inference batch recorded")
+    max_err, guard, works, totals = {}, 0, [], [0.0, 0.0, 0.0, 0.0]
+    paths, iters_all = {}, []
+    for args, em_iters in recorder.batches:
+        errs, g, iters, path = check_infer_batch(
+            f"slice batch {describe_batch(args)}", args, em_iters)
+        for name, e in errs.items():
+            max_err[name] = max(max_err.get(name, 0.0), e)
+        guard += g
+        paths[path] = paths.get(path, 0) + 1
+        iters_all.extend(int(i) for i in iters)
+        works.append(infer_work([a.cpu().numpy() for a in args], iters))
+        times = time_infer_batch(args)
+        totals = [t + x if t is not None and x is not None else None
+                  for t, x in zip(totals, times)]
+        print(f"infer batch: {describe_batch(args)}: kernel {times[0]:.6f} ms "
+              f"on the device, {times[1]:.6f} ms back to back; plain "
+              f"{times[2]:.6f} ms back to back, on the device "
+              f"{fmt_ms(times[3])}; EM iterations max {int(iters.max())}, mean "
+              f"{float(iters.mean()):.2f}; {g} guard-band windows", flush=True)
+    bound_ms, bound_by = infer_bound(works)
+    print(f"infer batches on {smi}: {len(recorder.batches)} batches of the "
+          f"slice's main path ({paths}), every output within tolerance of "
+          f"the plain version, two launches bitwise equal; max abs error "
+          + ", ".join(f"{n} {e:.3e}" for n, e in max_err.items())
+          + f"; {guard} guard-band windows excluded from em/freq/ratios; EM "
+          f"iterations per window: max {max(iters_all)}, mean "
+          f"{sum(iters_all) / len(iters_all):.2f} over {len(iters_all)} "
+          f"window rows; summed: kernel {totals[0]:.6f} ms on the device, "
+          f"{totals[1]:.6f} ms back to back; plain {totals[2]:.6f} ms back to "
+          f"back, on the device {fmt_ms(totals[3])}; bound {bound_ms:.6f} ms "
+          f"({bound_by}), {bound_ms / totals[0]:.1%} of it", flush=True)
+    return dict(max_abs_err=max(max_err.values()), ms=totals[0],
+                plain_ms=totals[2], bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def check_guard_with_plain(info, region, smi, kernel_to_host):
+    """The slice once more with launch_fused_inference pointed at the plain
+    version (a measurement here, never a switch of the package): its data
+    lines equal the reference's, and how many device-inferred windows the
+    f64 guard sends to the host with either route."""
+    from platypus_tpu_torch.ops import likelihood_cuda, likelihood_torch
+
+    out = os.path.join(info["workdir"], "port_plain_inference.vcf")
+    wrapper = likelihood_cuda.infer_window_batch
+    likelihood_cuda.infer_window_batch = likelihood_torch.infer_window_batch
+    try:
+        wall, counts = run_port(cli_args(info, region, out))
+    finally:
+        likelihood_cuda.infer_window_batch = wrapper
+    n_lines = check_same_calls("plain inference", os.path.join(
+        info["workdir"], "reference.vcf"), out)
+    if counts["infer_window"] != 0:
+        raise AssertionError(f"plain inference: the kernel ran: {counts}")
+    print(f"guard: slice on {smi}: device_windows_to_host {kernel_to_host} "
+          f"with the infer_window kernel, {counts['device_windows_to_host']} "
+          f"with launch_fused_inference pointed at the plain version "
+          f"({wall:.6f} s, {counts['batches']} batches); {n_lines} VCF data "
+          f"lines byte-identical to the reference", flush=True)
+
+
 def build_dataset(kind, workdir, *args):
     """A synthetic dataset built (or reused) in `workdir` by
     `python tests/test_torch_smoke_data.py kind workdir args...` in a child
@@ -865,15 +1229,17 @@ def reset_counts():
 
 
 def read_counts():
-    """Launches per kernel library, fused-inference batches and pairs whose
-    score the flank penalty lowered, since the last reset_counts() (and
+    """Launches per kernel library, fused-inference batches, pairs whose
+    score the flank penalty lowered and device-inferred windows the f64
+    guard sent to the host, since the last reset_counts() (and
     metrics.reset())."""
     from platypus_tpu_torch.engine.region import metrics
     from platypus_tpu_torch.ops import align_cuda
     from platypus_tpu_torch.parallel import batch
 
     return dict(align_cuda.LAUNCHES, batches=batch.BATCHES,
-                flank_pairs_lowered=metrics.counters["flank_pairs_lowered"])
+                flank_pairs_lowered=metrics.counters["flank_pairs_lowered"],
+                device_windows_to_host=metrics.counters["device_windows_to_host"])
 
 
 def run_port(argv):
@@ -985,7 +1351,8 @@ def check_pool(info, region, smi):
           f"reference CLI {ref_wall:.6f} s; port claims host "
           f"{summary['host']} / device {summary['device']} / rescued "
           f"{summary['rescued']}; the device worker called "
-          f"{summary['regions']} regions ({summary['band_align']} K1 launches) "
+          f"{summary['regions']} regions ({summary['band_align']} K1 and "
+          f"{summary['infer_window']} infer_window launches) "
           f"and was terminated {summary['terminated']} times; "
           f"{n_lines} VCF data lines byte-identical to each other and to "
           f"the single-process reference", flush=True)
@@ -1002,9 +1369,11 @@ def check_hybrid(info, smi):
                                             "--nCPU=2", "--tpuWorkers=1")),
         out, PLATYPUS_TPU_DEVICE_SETTLE="0")
     summary = pool_summary(out)
-    if summary["regions"] < 1 or summary["band_align_tb"] < 1:
+    if (summary["regions"] < 1 or summary["band_align_tb"] < 1
+            or summary["infer_window"] < 1):
         raise AssertionError(f"hybrid: the device worker called no region "
-                             f"through K2: {summary}")
+                             f"through K2 and the infer_window kernel: "
+                             f"{summary}")
     ref_out = os.path.join(workdir, "reference_hybrid.vcf")
     ref_wall = run_reference(cli_args(info, HYBRID_REGION, ref_out,
                                       ("--calculateFlankScore=1", shard,
@@ -1014,8 +1383,9 @@ def check_hybrid(info, smi):
           f"port CLI --nCPU=2 --tpuWorkers=1 {wall:.6f} s (claims host "
           f"{summary['host']} / device {summary['device']} / rescued "
           f"{summary['rescued']}; the device worker called "
-          f"{summary['regions']} regions with {summary['band_align_tb']} K2 and "
-          f"{summary['band_align']} K1 launches); CPU-pinned reference CLI "
+          f"{summary['regions']} regions with {summary['band_align_tb']} K2, "
+          f"{summary['band_align']} K1 and {summary['infer_window']} "
+          f"infer_window launches); CPU-pinned reference CLI "
           f"--nCPU=4 {ref_wall:.6f} s; {n_lines} VCF data lines "
           f"byte-identical", flush=True)
 
@@ -1036,13 +1406,15 @@ def check_service(info, region, smi):
     with open(stats_path) as fh:
         stats = json.load(fh)
     if (stats["backend"] != "cuda" or stats["requests"] <= 0
-            or stats["windows"] <= 0 or stats["errors"] != 0):
+            or stats["windows"] <= 0 or stats["errors"] != 0
+            or stats["infer_window_launches"] <= 0):
         raise AssertionError(f"service: served nothing on the card: {stats}")
     n_lines = check_same_calls("service", os.path.join(workdir, "reference.vcf"),
                                out)
     print(f"service: --nCPU=2 --inferenceService=1 on {smi}: port CLI "
           f"{wall:.6f} s, {stats['requests']} requests, {stats['windows']} "
-          f"windows served, {stats['errors']} errors; {n_lines} VCF data "
+          f"windows served, {stats['infer_window_launches']} infer_window "
+          f"launches, {stats['errors']} errors; {n_lines} VCF data "
           f"lines byte-identical", flush=True)
 
 
@@ -1130,12 +1502,15 @@ def check_mesh_cli(info, region, smi):
         timers = [line for line in stdout.splitlines()
                   if line.startswith("[mesh] ")]
         n_lines = check_same_calls(name, os.path.join(workdir, ref_name), out)
-        if launches[kernel] <= 0 or not any("pack+launch" in t for t in timers):
-            raise AssertionError(f"{name}: no {kernel} launch or no [mesh] "
-                                 f"timers: {launches}, {timers[:3]}")
+        if (launches[kernel] <= 0 or launches["infer_window"] <= 0
+                or not any("pack+launch" in t for t in timers)):
+            raise AssertionError(f"{name}: no {kernel} or infer_window launch "
+                                 f"or no [mesh] timers: {launches}, "
+                                 f"{timers[:3]}")
         print(f"mesh: {reg} {' '.join(extra)} --meshDevices=-1 on {smi}: port "
-              f"CLI {wall:.6f} s, {launches['band_align']} K1 and "
-              f"{launches['band_align_tb']} K2 launches, [mesh] timers summed "
+              f"CLI {wall:.6f} s, {launches['band_align']} K1, "
+              f"{launches['band_align_tb']} K2 and {launches['infer_window']} "
+              f"infer_window launches, [mesh] timers summed "
               f"over {len(timers) // 3} regions: {mesh_timer_sums(timers)}; "
               f"{n_lines} VCF data lines byte-identical to the reference's "
               f"default run", flush=True)
@@ -1184,13 +1559,15 @@ def check_mesh_shards(info, region, smi, device):
         wall = time.perf_counter() - t0
         launched = read_counts()
         kernel = "band_align_tb" if extra else "band_align"
-        if launched[kernel] <= 0:
-            raise AssertionError(f"mesh shards: no {kernel} launch: {launched}")
+        if launched[kernel] <= 0 or launched["infer_window"] <= 0:
+            raise AssertionError(f"mesh shards: no {kernel} or infer_window "
+                                 f"launch: {launched}")
         print(f"mesh shards: {reg} {' '.join(extra)} on {smi}: "
               f"{[m.shape for m in meshes]} gave bitwise equal pair scores "
               f"({counts['pairs']} pairs, {counts['windows']} windows) and "
               f"identical calls ({counts['calls']}), also with the host path; "
-              f"{launched[kernel]} {kernel} launches; {wall:.6f} s", flush=True)
+              f"{launched[kernel]} {kernel} and {launched['infer_window']} "
+              f"infer_window launches; {wall:.6f} s", flush=True)
 
 
 def check_dryrun(smi, device):
@@ -1303,9 +1680,9 @@ def check_infer_thread(info, region, smi):
         out = os.path.join(workdir, f"port_thread_{k}.vcf")
         with scoped_env("PLATYPUS_TPU_INFER_THREAD", mode):
             wall, counts = run_port(cli_args(info, region, out))
-        if counts["band_align"] <= 0:
+        if counts["band_align"] <= 0 or counts["infer_window"] <= 0:
             raise AssertionError(f"infer thread: run {k} (mode {mode}) "
-                                 f"launched no K1: {counts}")
+                                 f"launched no K1 or no infer_window: {counts}")
         timers = {name: metrics.timers[name] for name in (
             "device_inference", "device_alignment", "window_finish")}
         runs.append((mode, wall, counts["band_align"], timers))
@@ -1318,9 +1695,9 @@ def check_infer_thread(info, region, smi):
                           capture_output=True, text=True, timeout=900)
     cli_wall = time.perf_counter() - t0
     cli_launches, _ = counted_result(proc, f"{cli_out}.log")
-    if cli_launches["band_align"] <= 0:
-        raise AssertionError(f"infer thread: the fresh CLI launched no K1: "
-                             f"{cli_launches}")
+    if cli_launches["band_align"] <= 0 or cli_launches["infer_window"] <= 0:
+        raise AssertionError(f"infer thread: the fresh CLI launched no K1 or "
+                             f"no infer_window: {cli_launches}")
     n_lines = check_same_calls("infer thread", os.path.join(
         workdir, "reference.vcf"), *outs, cli_out)
     mean = {mode: statistics.mean(wall for m, wall, _, _ in runs if m == mode)
@@ -1342,8 +1719,8 @@ def trace_summary(path, symbols):
     event's start to last event's end), the device-busy time (the union of
     its GPU kernel, memcpy and memset intervals) and idle share, the CUDA
     kernel count, the host time in the kernel-launch API calls, the ten
-    device ops with the most total time, and the kernel events whose name
-    holds one of `symbols`."""
+    device ops with the most total time, and for each label of `symbols`
+    the kernel events whose name holds one of its names."""
     with open(path) as fh:
         events = [e for e in json.load(fh)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
@@ -1373,7 +1750,9 @@ def trace_summary(path, symbols):
         launch_api_ms=sum(e["dur"] for e in launch_api) / 1e3,
         top=[(name[:80], round(total / 1e3, 6), n)
              for name, (total, n) in top],
-        matched=sum(any(s in e["name"] for s in symbols) for e in kernels))
+        matched={label: sum(any(s in e["name"] for s in names)
+                            for e in kernels)
+                 for label, names in symbols.items()})
 
 
 def check_trace(info, smi):
@@ -1381,7 +1760,8 @@ def check_trace(info, smi):
     process inside observability.trace("slice_region"), with
     PLATYPUS_TPU_TRACE_DIR set to a new directory; its data lines equal
     the CPU-pinned reference's on the same region, and the trace it wrote
-    must hold GPU kernel events and K1's among them."""
+    must hold GPU kernel events, K1's and the fused inference's among
+    them."""
     import glob
 
     from platypus_tpu_torch.ops import align_cuda
@@ -1403,22 +1783,28 @@ def check_trace(info, smi):
     if len(files) != 1 or counts["band_align"] <= 0:
         raise AssertionError(f"trace: {files} written, {counts['band_align']} "
                              f"K1 launches")
-    # A kernel function's name is its C entry's without the ptt_ prefix,
-    # with _kernel after it (csrc/band_align.cu).
-    symbols = [entry[len("ptt_"):] + "_kernel"
-               for entry in align_cuda.KERNELS["band_align"].entries]
+    # A K1 kernel function's name is its C entry's without the ptt_
+    # prefix, with _kernel after it (csrc/band_align.cu); the fused
+    # inference's two are named in csrc/infer_window.cu.
+    symbols = {"K1": [entry[len("ptt_"):] + "_kernel"
+                      for entry in align_cuda.KERNELS["band_align"].entries],
+               "infer_window": ["infer_window_gl_kernel",
+                                "infer_window_em_kernel"]}
     summary = trace_summary(files[0], symbols)
-    if summary["kernels"] <= 0 or summary["matched"] <= 0:
-        raise AssertionError(f"trace: no GPU kernel event or none of K1 "
-                             f"({symbols}): {summary}")
+    if summary["kernels"] <= 0 or min(summary["matched"].values()) <= 0:
+        raise AssertionError(f"trace: no GPU kernel event or none of K1 or "
+                             f"of the fused inference ({symbols}): {summary}")
     print(f"trace: {region} on {smi} in this process, {wall:.6f} s "
           f"({traced:.6f} s with the profiler's start and trace write), "
           f"{counts['band_align']} K1 launches, {counts['batches']} "
-          f"fused-inference batches, {n_lines} VCF data lines byte-identical "
+          f"fused-inference batches ({counts['infer_window']} infer_window "
+          f"launches), {n_lines} VCF data lines byte-identical "
           f"to the reference; trace {os.path.getsize(files[0])} bytes: window "
           f"{summary['window_ms']:.3f} ms, device busy {summary['busy_ms']:.3f}"
           f" ms, idle share {summary['idle_share']:.4f}, {summary['kernels']} "
-          f"CUDA kernels ({summary['matched']} of K1), {summary['launch_calls']}"
+          f"CUDA kernels ({summary['matched']['K1']} of K1, "
+          f"{summary['matched']['infer_window']} of the fused inference), "
+          f"{summary['launch_calls']}"
           f" kernel-launch API calls taking {summary['launch_api_ms']:.3f} ms "
           f"of host time; top device ops (name, ms, count): {summary['top']}",
           flush=True)
@@ -1538,11 +1924,13 @@ def main() -> int:
         for line in align_cuda.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: ptxas: {line.strip()}", flush=True)
-        sass_loop(name)
+        if name != "infer_window":
+            sass_loop(name)
 
     # 3. kernel
     report = {"band_align": check_kernel(device),
               "band_align_tb": check_tb_kernel(device)}
+    check_infer_kernel(device)
     errors.check("kernel")
 
     # 4. slice on cuda, 5. the CPU-pinned reference on the same data
@@ -1555,23 +1943,31 @@ def main() -> int:
           f"({time.perf_counter() - t0:.3f} s to build or load)", flush=True)
     region = f"chr20:1000-{info['length'] + 1000}"
     port_out = os.path.join(info["workdir"], "port.vcf")
-    with ChunkRecorder() as recorder:
+    with ChunkRecorder() as recorder, InferRecorder() as infer_recorder:
         wall, counts = run_port(cli_args(info, region, port_out))
     errors.check("slice")
-    launches = {"band_align": counts["band_align"]}
-    if counts["band_align"] <= 0 or counts["batches"] <= 0:
+    launches = {"band_align": counts["band_align"],
+                "infer_window": counts["infer_window"]}
+    kernel_to_host = counts["device_windows_to_host"]
+    if (counts["band_align"] <= 0 or counts["batches"] <= 0
+            or counts["infer_window"] <= 0):
         raise AssertionError(f"main path missed the card: {counts}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported by the port's main path")
     print(f"slice: port on cuda in this process (first call) {wall:.6f} s, "
           f"{info['n_reads'] / wall:.1f} reads/s, {counts['band_align']} "
-          f"kernel launches, {counts['batches']} fused-inference batches",
-          flush=True)
+          f"kernel launches, {counts['batches']} fused-inference batches "
+          f"({counts['infer_window']} infer_window launches), "
+          f"{kernel_to_host} device-inferred windows sent to the host by "
+          f"the f64 guard", flush=True)
     print(f"slice: K1 launch sizes (pairs) {recorder.sizes}", flush=True)
     if recorder.first is None:
         raise AssertionError("slice: no call of K1's pair entry recorded")
     check_main_chunk(recorder.first, smi)
     errors.check("main-path chunk")
+    report["infer_window"] = check_infer_batches(infer_recorder, smi)
+    del infer_recorder
+    errors.check("infer batches")
 
     cli_out = os.path.join(info["workdir"], "port_cli.vcf")
     cli_wall = run_port_cli(cli_args(info, region, cli_out), cli_out)
@@ -1582,6 +1978,8 @@ def main() -> int:
           f"({info['n_reads'] / cli_wall:.1f} reads/s), CPU-pinned platypus_tpu "
           f"{ref_wall:.6f} s ({info['n_reads'] / ref_wall:.1f} reads/s); "
           f"{n_lines} VCF data lines byte-identical", flush=True)
+    check_guard_with_plain(info, region, smi, kernel_to_host)
+    errors.check("guard with the plain inference")
 
     beam = {"calls": 0, "launches": 0}
     inner = port_caller._beam_search_haplotypes

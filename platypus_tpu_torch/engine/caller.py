@@ -39,6 +39,7 @@ from ..config import PlatypusConfig, RuntimeState
 from ..io.readbuffer import SampleReadBuffer
 from ..models.haplotype import Haplotype, merge_haplotypes
 from ..ops import likelihood as lk
+from ..utils.observability import GLOBAL_METRICS as metrics
 from .score import (WindowReads, build_alignment_request, gather_window_reads,
                     run_alignment_requests, score_reads_vs_haplotypes)
 
@@ -584,6 +585,7 @@ def finish_window(
     priors: Dict[Variant, float] = {}
     if inference is not None and _device_window_needs_host(
             inference, all_haps, hap_var_sets, I, config, ref_file, priors):
+        metrics.count("device_windows_to_host")
         inference = None
     if inference is not None:
         em_lik = inference.em

@@ -99,6 +99,8 @@ def device_server_main(req_q, resp_qs, ready_evt, down_evt, device) -> None:
     if it could not own `device` or recorded an error."""
     import torch
 
+    from ..ops import align_cuda
+
     stats = {"backend": device.type, "requests": 0, "windows": 0,
              "errors": 0}
     in_flight: deque = deque()  # (worker_id, req_id, [device outputs])
@@ -152,6 +154,7 @@ def device_server_main(req_q, resp_qs, ready_evt, down_evt, device) -> None:
         # ready event, wakes, and finds the service down.
         down_evt.set()
         ready_evt.set()
+        stats["infer_window_launches"] = align_cuda.LAUNCHES["infer_window"]
         _write_stats(stats)
         logger.info("device service stopping: %s", stats)
     if stats["errors"]:

@@ -14,6 +14,10 @@ csrc/pair_loader.cuh.  A tensor on the CPU goes to the plain torch version
 (align_torch); a CUDA tensor launches the hand-written sm_90a kernel or
 raises.  Nothing falls back.
 
+The same machinery builds, binds and counts the fused window inference
+(csrc/infer_window.cu, KERNELS["infer_window"]), whose wrapper is
+ops/likelihood_cuda.py.
+
 Each kernel library is compiled with nvcc into a shared library with a
 plain C interface and bound through ctypes.  The build runs at first use,
 into platypus_tpu_torch/_build/, keyed by a hash of the source, the
@@ -45,7 +49,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 class Kernel(NamedTuple):
     entries: Dict[str, list]  # C entry points of csrc/<library name>.cu
-    replaces: str             # the TPU kernel it ports
+    replaces: str             # the TPU kernel (or XLA program) it ports
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -56,6 +60,10 @@ KERNELS: Dict[str, Kernel] = {
     "band_align_tb": Kernel({"ptt_band_align_tb_pairs": [_P] * 11 + [_I] * 5
                                                         + [_P]},
                             "platypus_tpu/ops/align_pallas.py:145"),
+    "infer_window": Kernel({"ptt_infer_window_batch": [_P] * 16 + [_I] * 6
+                                                      + [ctypes.c_float, _P]},
+                           "platypus_tpu/ops/likelihood_jax.py:310 (an XLA "
+                           "program, not a Pallas kernel)"),
 }
 
 # Launches per kernel library since the last reset (chip_smoke.py reads
@@ -77,7 +85,7 @@ def _nvcc() -> str:
         path = cand if os.path.exists(cand) else None
     if path is None:
         raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin); the "
-                           "band_align CUDA kernels cannot be built")
+                           "CUDA kernels cannot be built")
     return path
 
 

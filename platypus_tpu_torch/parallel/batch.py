@@ -5,7 +5,8 @@ reference's hot loop #2, cpopulation.pyx:283-457) is a pile of small dense
 ops; running it window-by-window on the device would drown in launch
 latency.  Instead the region's windows are bucketed by (haplotype count,
 read count, variant count) into a few fixed shapes, padded with masks, and
-each bucket runs ONE fused program (ops/likelihood_torch.infer_window_batch).
+each bucket runs ONE fused program (ops/likelihood_cuda.infer_window_batch:
+two hand-written kernels on the card, the plain torch version on the CPU).
 
 The host half (bucketing windows into padded InferenceBatch arrays and
 mapping results back to WindowInference) is plain numpy: the device-owner
@@ -191,13 +192,14 @@ def inference_results_to_windows(
 def launch_fused_inference(loglik, onehot, hap_mask, var_mask, has_reads,
                            device, em_iters: int = 100):
     """Upload one padded batch and queue the fused GL/EM/posterior program
-    on `device`; the single launch of both the in-process pipeline
-    (dispatch_device_inference) and the device-owner service
-    (engine/device_service.py).  Returns (h1, h2, device result tuple)."""
+    on `device` (the infer_window kernels on a card); the single launch of
+    both the in-process pipeline (dispatch_device_inference) and the
+    device-owner service (engine/device_service.py).  Returns (h1, h2,
+    device result tuple)."""
     global BATCHES
     import torch
 
-    from ..ops.likelihood_torch import infer_window_batch
+    from ..ops.likelihood_cuda import infer_window_batch
 
     Hb = hap_mask.shape[1]
     h1, h2 = genotype_index_pairs(Hb)
@@ -206,7 +208,7 @@ def launch_fused_inference(loglik, onehot, hap_mask, var_mask, has_reads,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     dev = infer_window_batch(up(loglik), up(onehot), up(hap_mask),
-                             up(h1.astype(np.int64)), up(h2.astype(np.int64)),
+                             up(h1.astype(np.int32)), up(h2.astype(np.int32)),
                              up(var_mask), up(has_reads), em_iters=em_iters)
     BATCHES += 1
     return h1, h2, dev

@@ -15,7 +15,7 @@ out:
 * the row's scores come together on the row's first device, which
   scatter-mins them into the [W, Hmax, Rmax] score tensor, applies the
   short / aligned / hap masks and runs the fused inference
-  (ops/likelihood_torch.infer_window_batch).
+  (ops/likelihood_cuda.infer_window_batch: the infer_window kernels).
 
 Every group's work is queued on every device before anything is fetched,
 and then each device is read once.  A pair's score does not depend on the
@@ -42,9 +42,9 @@ from ..engine.score import (check_pair_rows, flank_pair_scores,
 from ..ops.align_cuda import band_align_padded, band_align_pairs
 from ..ops.kmer import HASH_NUCS
 from ..ops.likelihood import genotype_index_pairs
+from ..ops.likelihood_cuda import infer_window_batch
 from ..ops.likelihood_torch import (em_frequencies, genotype_log_likelihoods,
-                                    infer_window_batch, rescale_likelihoods,
-                                    scores_to_logliks,
+                                    rescale_likelihoods, scores_to_logliks,
                                     variant_posterior_ratio)
 from ..utils.backend import fetch
 from .batch import WindowInference, enumerate_window_variants, geom_bucket
@@ -311,8 +311,8 @@ def _launch_group(g: dict, mesh: DeviceMesh, use_cap: bool, use_flank: bool,
         ll = torch.where(aligned[:, None, :], ll, 0.0)
         ll = torch.where(hap_mask[:, :, None], ll, 0.0)
         _lik, em, freq, _gof, ratios, _gl_rel, margin = infer_window_batch(
-            ll, up(g["onehot"][ws]), hap_mask, up(h1.astype(np.int64)),
-            up(h2.astype(np.int64)), up(g["var_mask"][ws]),
+            ll, up(g["onehot"][ws]), hap_mask, up(h1.astype(np.int32)),
+            up(h2.astype(np.int32)), up(g["var_mask"][ws]),
             up(g["has_reads"][ws]), em_iters)
         rows.append((n_real, (row_scores, em, freq, ratios, margin)))
     return rows

@@ -41,6 +41,7 @@ def test_importing_every_module_leaves_jax_unloaded():
     mods = _modules()
     assert "platypus_tpu_torch.cli" in mods
     assert "platypus_tpu_torch.ops.align_cuda" in mods
+    assert "platypus_tpu_torch.ops.likelihood_cuda" in mods
     assert "platypus_tpu_torch.engine.hla" in mods
     for mod in ("parallel.mesh", "parallel.distributed", "graft_entry"):
         assert f"platypus_tpu_torch.{mod}" in mods
@@ -209,11 +210,11 @@ def test_kernel_build_names_every_source():
     """Each kernel library has its source in the package, and its build
     path is keyed by that source and the flags."""
     paths = {name: align_cuda.library_path(name) for name in align_cuda.KERNELS}
-    assert set(paths) == {"band_align", "band_align_tb"}
+    assert set(paths) == {"band_align", "band_align_tb", "infer_window"}
     for name, path in paths.items():
         assert os.path.exists(align_cuda.source(name))
         assert os.path.basename(path).startswith(f"lib{name}_")
-    assert len(set(paths.values())) == 2
+    assert len(set(paths.values())) == 3
 
 
 def test_kernel_build_is_keyed_by_the_shared_headers(tmp_path, monkeypatch):
@@ -230,12 +231,18 @@ def test_kernel_build_is_keyed_by_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_kernel_table_names_the_tpu_kernels():
-    """Each kernel library's `replaces` is the def line of a Pallas kernel."""
+    """Each kernel library's `replaces` starts with the def line of a
+    Pallas kernel, or for the fused inference that of the XLA program it
+    replaces, which it names as such."""
     for name, kernel in align_cuda.KERNELS.items():
-        path, line = kernel.replaces.split(":")
+        path, line = re.match(r"(\S+):(\d+)", kernel.replaces).groups()
         with open(os.path.join(REPO, path)) as fh:
             text = fh.read().splitlines()[int(line) - 1]
-        assert re.match(r"def _band_align\w*_kernel\(", text), (name, text)
+        if name == "infer_window":
+            assert text.startswith("def infer_window_batch("), text
+            assert "XLA program, not a Pallas kernel" in kernel.replaces
+        else:
+            assert re.match(r"def _band_align\w*_kernel\(", text), (name, text)
 
 
 def test_chip_smoke_imports_no_jax_package():
@@ -301,7 +308,18 @@ def test_port_runs_with_jax_package_blocked(tmp_path, small_region):
 RENAMED = {
     "ops/align_jax.py": ["ops/align_torch.py", "ops/align_cuda.py"],
     "ops/align_pallas.py": ["csrc/band_align.cu", "csrc/band_align_tb.cu"],
-    "ops/likelihood_jax.py": ["ops/likelihood_torch.py"],
+    "ops/likelihood_jax.py": ["ops/likelihood_torch.py",
+                              "csrc/infer_window.cu"],
+}
+# Modules of the port with no module of the JAX package at their path or
+# in RENAMED: module -> what it is.
+PORT_ONLY = {
+    "graft_entry.py": "the twin of the repository's __graft_entry__.py, "
+                      "which lies outside the JAX package",
+    "ops/likelihood_cuda.py": "the card route of "
+                              "likelihood_jax.infer_window_batch: the wrapper "
+                              "of csrc/infer_window.cu (the plain version "
+                              "stays likelihood_torch.infer_window_batch)",
 }
 # PLATYPUS_TPU_* variables the JAX package reads and the port does not:
 # variable -> (the JAX package's file that reads it, why the port has no
@@ -369,6 +387,19 @@ def test_every_jax_package_module_has_a_port_counterpart():
             missing.append((rel, targets))
     assert not missing, missing
     assert all(os.path.exists(os.path.join(jax_dir, rel)) for rel in RENAMED)
+
+
+def test_every_port_module_maps_to_the_jax_package():
+    """Every module of the port sits at a path of the JAX package, is a
+    counterpart in RENAMED, or is listed in PORT_ONLY with what it is."""
+    jax_dir = os.path.join(REPO, "platypus_tpu")
+    known = set(_tree(jax_dir)) | {t for ts in RENAMED.values() for t in ts}
+    unmapped = [rel for rel in _tree(PKG_DIR)
+                if rel not in known and rel not in PORT_ONLY]
+    assert not unmapped, unmapped
+    for rel, what in PORT_ONLY.items():
+        assert os.path.exists(os.path.join(PKG_DIR, rel)) and what, rel
+        assert rel not in known, rel
 
 
 def test_every_jax_package_variable_is_read_or_listed():
