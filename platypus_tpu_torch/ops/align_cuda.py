@@ -61,7 +61,8 @@ KERNELS: Dict[str, Kernel] = {
                                                         + [_P]},
                             "platypus_tpu/ops/align_pallas.py:145"),
     "infer_window": Kernel({"ptt_infer_window_batch": [_P] * 16 + [_I] * 6
-                                                      + [ctypes.c_float, _P]},
+                                                      + [ctypes.c_float, _I,
+                                                         _P]},
                            "platypus_tpu/ops/likelihood_jax.py:310 (an XLA "
                            "program, not a Pallas kernel)"),
 }

@@ -3,20 +3,23 @@
 The card route of platypus_tpu/ops/likelihood_jax.py::infer_window_batch,
 an XLA program (not a Pallas kernel): genotype GL/GOF, rescale, relative
 log GLs, a log-domain EM that stops each window at its own convergence,
-and the posterior log ratios, in two kernels launched by one C entry.  A
-tensor on the CPU goes to the plain torch version
-(likelihood_torch.infer_window_batch); a CUDA tensor launches the kernels
-or raises.  Nothing falls back.  The library is built, bound and counted
-by ops/align_cuda.py (KERNELS["infer_window"]), as K1 and K2 are.
+and the posterior log ratios.  A tensor on the CPU goes to the plain torch
+version (likelihood_torch.infer_window_batch); a CUDA tensor launches the
+kernels or raises.  Nothing falls back, and no route gives way to another.
+The library is built, bound and counted by ops/align_cuda.py
+(KERNELS["infer_window"]), as K1 and K2 are.
 
 h1/h2 must be the lexicographic genotype pairs of Hmax
 (ops/likelihood.genotype_index_pairs), as every caller passes them: the
 kernel's M-step finds the genotypes of each hap from that order, and it
 writes NaN into every output of a batch whose pairs differ.
 
-A window's EM tables live in shared memory while they fit in 227 KB
-(em_path); beyond that, for example at Hmax = 256 with one individual or
-Hmax = 64 with 30, the same kernel runs on a global workspace.
+em_path picks the kernel's route from (Hmax, I) alone: "warp" (one warp
+per window, a lane per individual, GL/GOF in the same launch) for small
+windows of at most 32 individuals, else one CTA per
+window with its tables in shared memory ("shared", up to 227 KB) or, for
+example at Hmax = 256 with one individual or Hmax = 64 with 30, in a global
+workspace ("global").
 """
 
 from __future__ import annotations
@@ -26,25 +29,62 @@ import torch
 from . import align_cuda
 from .likelihood_torch import infer_window_batch as infer_window_batch_reference
 
-# Shared memory one block may use on Hopper (227 KB), and what the EM
-# kernel holds besides its tables (its per-warp reduction slots).
+# Shared memory one block may use on Hopper (227 KB), and what the CTA
+# routes' EM kernel holds besides its tables (three sets of per-warp
+# reduction slots).
 SHARED_LIMIT = 232448
-_EM_STATIC_BYTES = 8 * 4
+_EM_STATIC_BYTES = 3 * 8 * 4
+# The warp route: windows (warps) per block; the largest Hmax its kernel is
+# built for and the most individuals (a lane each); and, per Hmax, the most
+# individuals em_path sends to it: where it beat the CTA route and the
+# PR 10 design in a sweep of Hmax 2-6 at I = 1-30 on the card (PERF.md
+# section 6).
+WARP_WINDOWS = 4
+WARP_KERNEL_MAX_HAPS, WARP_MAX_IND = 6, 32
+WARP_ROUTE_LIMIT = {1: 32, 2: 32, 3: 32, 4: 32, 5: 2, 6: 2}
+ROUTES = ("warp", "shared", "global")
 
 
 def em_table_bytes(n_haps: int, n_ind: int) -> int:
-    """Bytes of one window's EM tables (csrc/infer_window.cu table_floats):
-    gl_rel and log responsibilities [I, G], log_resp [G], log_freq and the
-    next log_freq [H], the variant side's log sums [I], in float32."""
+    """Bytes of one window's EM tables on the CTA routes
+    (csrc/infer_window.cu table_floats): gl_rel and log responsibilities
+    [I, G], log_resp [G], log_freq and the next log_freq [H], the variant
+    side's log sums [I], in float32."""
     G = n_haps * (n_haps + 1) // 2
     return 4 * (2 * n_ind * G + G + 2 * n_haps + n_ind)
 
 
+def warp_table_bytes(n_haps: int, n_ind: int) -> int:
+    """Shared-memory bytes of one window on the warp route
+    (warp_table_floats): [I, G] (gl staged for the lanes' rows, then the
+    rows' log responsibilities), log_resp [G] and 32 per-individual terms
+    of the posteriors."""
+    return 4 * ((n_ind + 1) * n_haps * (n_haps + 1) // 2 + 32)
+
+
 def em_path(n_haps: int, n_ind: int) -> str:
-    """'shared' when a window's EM tables and the kernel's reduction slots
-    fit in SHARED_LIMIT bytes, else 'global' (a workspace in device memory)."""
-    fits = em_table_bytes(n_haps, n_ind) + _EM_STATIC_BYTES <= SHARED_LIMIT
-    return "shared" if fits else "global"
+    """The kernel's route for a batch of Hmax `n_haps` and `n_ind`
+    individuals: 'warp' up to WARP_ROUTE_LIMIT[n_haps] individuals; else
+    'shared' when one window's tables and the EM kernel's reduction slots
+    fit in SHARED_LIMIT bytes; else 'global' (a workspace in device
+    memory)."""
+    if n_ind <= WARP_ROUTE_LIMIT.get(n_haps, 0):
+        return "warp"
+    return "shared" if route_fits("shared", n_haps, n_ind) else "global"
+
+
+def route_fits(route: str, n_haps: int, n_ind: int) -> bool:
+    """Whether `route` can run a batch of (n_haps, n_ind): the warp route
+    has a kernel up to WARP_KERNEL_MAX_HAPS haps and a lane for each of at
+    most WARP_MAX_IND individuals; the shared route needs one window's
+    tables in shared memory."""
+    if route == "warp":
+        return (n_haps <= WARP_KERNEL_MAX_HAPS and n_ind <= WARP_MAX_IND
+                and WARP_WINDOWS * warp_table_bytes(n_haps, n_ind)
+                <= SHARED_LIMIT)
+    if route == "shared":
+        return em_table_bytes(n_haps, n_ind) + _EM_STATIC_BYTES <= SHARED_LIMIT
+    return route == "global"
 
 
 def _check_inputs(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask,
@@ -78,35 +118,44 @@ def _check_inputs(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask,
 
 
 def launch(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask, has_reads,
-           em_iters: int = 100):
-    """The kernels on CUDA tensors: (the seven outputs of
-    infer_window_batch, EM iterations each window ran [W] int32).  Raises
-    when the library does not build or the launch is refused."""
+           em_iters: int = 100, route: str | None = None):
+    """The kernel on CUDA tensors: (the seven outputs of
+    infer_window_batch, EM iterations each window ran [W] int32), all
+    views of one float32 buffer (with the global route's workspace).
+    `route` (one of ROUTES, em_path's choice by default) picks the
+    kernel's route; a route whose tables do not fit raises.  Raises when
+    the library does not build or the launch is refused."""
     W, H, R, I, V = _check_inputs(loglik, sample_onehot, hap_mask, h1, h2,
                                   var_hap_mask, has_reads)
+    route = em_path(H, I) if route is None else route
+    if route not in ROUTES or not route_fits(route, H, I):
+        raise ValueError(f"infer_window_batch: route {route!r} cannot run "
+                         f"Hmax={H}, I={I}")
     dev = loglik.device
     G = H * (H + 1) // 2
     tol = min(1e-3, 1.0 / (I * 4))  # reference eps, cpopulation.pyx:705
     lib = align_cuda.load("infer_window")
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    lik, em, gof, gl_rel = (empty(W, I, G) for _ in range(4))
-    freq, ratios, margin = empty(W, H), empty(W, V), empty(W)
-    iters = empty(W, dtype=torch.int32)
+    # lik, em, gof, gl_rel [W, I, G]; freq [W, H]; ratios [W, V]; margin,
+    # iters [W]; then the workspace on the global route.
+    sizes = (W * I * G,) * 4 + (W * H, W * V, W, W)
+    work = W * em_table_bytes(H, I) // 4 if route == "global" else 0
+    buf = torch.empty(sum(sizes) + work, dtype=torch.float32, device=dev)
+    parts, at = [], 0
+    for n in sizes:
+        parts.append(buf[at:at + n])
+        at += n
+    lik, em, gof, gl_rel = (p.view(W, I, G) for p in parts[:4])
+    freq, ratios = parts[4].view(W, H), parts[5].view(W, V)
+    margin, iters = parts[6], parts[7].view(torch.int32)
     outs = (lik, em, freq, gof, ratios, gl_rel, margin)
     if W == 0:
         return outs, iters
-    workspace = None
-    if em_path(H, I) == "global":
-        workspace = empty(W * em_table_bytes(H, I) // 4)
+    workspace = buf[at:].data_ptr() if work else None
     align_cuda._launch(
         dev, "infer_window", lib.ptt_infer_window_batch,
         *(t.data_ptr() for t in (loglik, sample_onehot, hap_mask, h1, h2,
                                  var_hap_mask, has_reads, *outs, iters)),
-        None if workspace is None else workspace.data_ptr(),
-        W, H, R, I, V, int(em_iters), tol)
+        workspace, W, H, R, I, V, int(em_iters), tol, ROUTES.index(route))
     return outs, iters
 
 

@@ -28,13 +28,22 @@ from chip_smoke import INFER_SHAPES, compare_inference, random_windows
 from platypus_tpu_torch.ops import align_cuda, likelihood_cuda, likelihood_torch
 from platypus_tpu_torch.ops.likelihood import genotype_index_pairs
 
-# (label, seed, (W, Hb, Rb, I, Vb), expected memory path)
+# (label, seed, (W, Hb, Rb, I, Vb), expected route)
 CASES = [
     ("shared-Hb12-I1", 1, (6, 12, 96, 1, 6), "shared"),
     ("shared-Hb24-I4-padded", 2, (5, 24, 64, 4, 5), "shared"),
     ("global-Hb256-I1", 3, (2, 256, 64, 1, 3), "global"),
     ("global-Hb64-I30", 4, (6, 64, 256, 30, 4), "global"),
+    ("warp-Hb4-I1", 21, (9, 4, 64, 1, 3), "warp"),
+    ("warp-Hb3-I25", 22, (7, 3, 192, 25, 3), "warp"),
+    ("warp-Hb4-I16", 23, (5, 4, 96, 16, 4), "warp"),
+    ("shared-split-Hb64-I1", 24, (3, 64, 64, 1, 3), "shared"),
+    ("global-Hb160-I2", 25, (2, 160, 64, 2, 3), "global"),
 ]
+# Every (case, route) the kernel can run: the route em_path picks and each
+# other route whose tables fit.
+ROUTED = [(c, r) for c in CASES for r in likelihood_cuda.ROUTES
+          if likelihood_cuda.route_fits(r, c[2][1], c[2][3])]
 
 
 def _jax_outputs(arrays, em_iters=100):
@@ -79,18 +88,20 @@ def test_wrapper_on_cpu_matches_jax_with_few_iterations():
 
 
 def test_smoke_shapes_cover_both_paths():
+    """The smoke's synthetic batches reach every route (em_path's choice)."""
     paths = {likelihood_cuda.em_path(Hb, I) for _W, Hb, _R, I, _V in INFER_SHAPES}
-    assert paths == {"shared", "global"}
+    assert paths == {"warp", "shared", "global"}
 
 
 def test_em_path_splits_at_227_kb(monkeypatch):
-    """Shared memory exactly while the tables and the kernel's reduction
-    slots fit in 232448 bytes, global memory above."""
+    """Past the warp route, shared memory exactly while the tables and the
+    EM kernel's reduction slots fit in 232448 bytes, global memory above."""
     limit = likelihood_cuda.SHARED_LIMIT
-    assert limit == 227 * 1024
+    slots = likelihood_cuda._EM_STATIC_BYTES
+    assert limit == 227 * 1024 and slots == 3 * 8 * 4
     for I in (1, 2, 30):
         H = max(h for h in range(1, 400)
-                if likelihood_cuda.em_table_bytes(h, I) + 32 <= limit)
+                if likelihood_cuda.em_table_bytes(h, I) + slots <= limit)
         assert likelihood_cuda.em_path(H, I) == "shared"
         assert likelihood_cuda.em_path(H + 1, I) == "global"
     assert likelihood_cuda.em_table_bytes(256, 1) == 4 * (2 * 32896 + 32896
@@ -99,10 +110,46 @@ def test_em_path_splits_at_227_kb(monkeypatch):
     assert likelihood_cuda.em_path(64, 30) == "global"
     assert likelihood_cuda.em_path(128, 1) == "shared"
     # A table that lands on the limit exactly takes shared memory.
-    for size, path in ((limit - 32, "shared"), (limit - 31, "global")):
+    wide = max(likelihood_cuda.WARP_ROUTE_LIMIT) + 1
+    for size, path in ((limit - slots, "shared"), (limit - slots + 1, "global")):
         monkeypatch.setattr(likelihood_cuda, "em_table_bytes",
                             lambda H, I, size=size: size)
-        assert likelihood_cuda.em_path(1, 1) == path
+        assert likelihood_cuda.em_path(wide, 1) == path
+
+
+@pytest.mark.parametrize("H,I,route", [
+    (2, 1, "warp"), (4, 1, "warp"), (3, 16, "warp"), (4, 25, "warp"),
+    (4, 30, "warp"), (4, 32, "warp"), (5, 1, "warp"), (6, 2, "warp"),
+    (5, 3, "shared"), (6, 16, "shared"), (2, 33, "shared"),
+    (8, 25, "shared"), (64, 1, "shared"), (24, 4, "shared"),
+    (256, 1, "global"), (64, 30, "global"), (160, 2, "global")])
+def test_route_is_chosen_from_haps_and_individuals(H, I, route):
+    """em_path decides from (Hmax, I) alone: the warp route up to
+    WARP_ROUTE_LIMIT[Hmax] individuals (one lane each), then the CTA
+    routes; the slice's Hb <= 4 batches and a cohort's Hb <= 4 batches at
+    I <= 32 take the warp route.  route_fits says which routes a batch may
+    be forced to."""
+    assert likelihood_cuda.em_path(H, I) == route
+    G = H * (H + 1) // 2
+    assert likelihood_cuda.warp_table_bytes(H, I) == 4 * ((I + 1) * G + 32)
+    fits = [r for r in likelihood_cuda.ROUTES
+            if likelihood_cuda.route_fits(r, H, I)]
+    assert route in fits and "global" in fits
+    assert ("warp" in fits) == (H <= likelihood_cuda.WARP_KERNEL_MAX_HAPS
+                                and I <= 32)
+
+
+def test_warp_route_limit_stays_inside_its_kernel():
+    """Every Hmax the warp route takes has a kernel instance and at most a
+    lane per individual; Hmax past the table takes a CTA route."""
+    limit = likelihood_cuda.WARP_ROUTE_LIMIT
+    assert max(limit) <= likelihood_cuda.WARP_KERNEL_MAX_HAPS
+    for H, top in limit.items():
+        assert 1 <= top <= likelihood_cuda.WARP_MAX_IND
+        assert likelihood_cuda.em_path(H, top) == "warp"
+        assert likelihood_cuda.em_path(H, top + 1) != "warp"
+    for I in (1, 2, 16):
+        assert likelihood_cuda.em_path(max(limit) + 1, I) != "warp"
 
 
 def _hap_genotypes(n_haps):
@@ -169,6 +216,12 @@ class _Fake:
     def data_ptr(self):
         return self._t.data_ptr()
 
+    def __getitem__(self, key):
+        return _Fake(self._t[key], self.device)
+
+    def view(self, *shape):
+        return _Fake(self._t.view(*shape), self.device)
+
 
 def _fake_inputs(shape, device, seed=7):
     return [_Fake(torch.from_numpy(a), device)
@@ -197,14 +250,19 @@ def fake_card(monkeypatch):
         return 0
 
     real_empty = torch.empty
+    allocs = []
+
+    def empty(*a, device=None, **k):
+        allocs.append(_Fake(real_empty(*a, **k), torch.device(device)))
+        return allocs[-1]
+
     monkeypatch.setattr(torch.cuda, "device", fake_device)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k:
-                        _Fake(real_empty(*a, **k), torch.device(device)))
+    monkeypatch.setattr(torch, "empty", empty)
     monkeypatch.setattr(align_cuda, "load", lambda lib: SimpleNamespace(
         **dict.fromkeys(align_cuda.KERNELS[lib].entries, entry)))
-    return SimpleNamespace(current=current, calls=calls)
+    return SimpleNamespace(current=current, calls=calls, allocs=allocs)
 
 
 def test_launch_runs_inside_the_inputs_device(fake_card):
@@ -233,6 +291,50 @@ def test_launch_passes_a_workspace_only_on_the_global_path(fake_card, shape,
     workspace = args[15]
     assert args[16:23] == (W, Hb, Rb, I, Vb, 100, min(1e-3, 1 / (4 * I)))
     assert (workspace is None) == (path == "shared")
+
+
+@pytest.mark.parametrize("shape,route", [((3, 4, 64, 2, 3), "warp"),
+                                         ((3, 64, 64, 1, 3), "shared"),
+                                         ((2, 64, 64, 30, 3), "global")])
+def test_outputs_are_views_of_one_buffer(fake_card, shape, route):
+    """One allocation a launch: lik, em, gof, gl_rel [W, I, G], freq
+    [W, H], ratios [W, V], margin and iters [W] (int32), and on the global
+    route the [W, table] workspace, back to back in one float32 buffer; the
+    route reaches the entry as its index in ROUTES."""
+    W, Hb, Rb, I, Vb = shape
+    G = Hb * (Hb + 1) // 2
+    outs, iters = likelihood_cuda.launch(
+        *_fake_inputs(shape, torch.device("cuda")))
+    (buf,) = fake_card.allocs
+    assert buf.dtype == torch.float32
+    (_dev, args), = fake_card.calls
+    assert args[23] == likelihood_cuda.ROUTES.index(route)
+    lik, em, freq, gof, ratios, gl_rel, margin = outs
+    sizes = [("lik", lik, W * I * G), ("em", em, W * I * G),
+             ("gof", gof, W * I * G), ("gl_rel", gl_rel, W * I * G),
+             ("freq", freq, W * Hb), ("ratios", ratios, W * Vb),
+             ("margin", margin, W), ("iters", iters, W)]
+    at = buf.data_ptr()
+    for name, t, n in sizes:
+        assert t.data_ptr() == at, name
+        at += 4 * n
+    assert iters._t.dtype == torch.int32 and tuple(lik._t.shape) == (W, I, G)
+    work = W * likelihood_cuda.em_table_bytes(Hb, I) if route == "global" else 0
+    assert buf._t.numel() * 4 == at - buf.data_ptr() + work
+    assert args[15] == (at if route == "global" else None)
+    # The pointers the entry got are those views'.
+    assert args[7:15] == tuple(t.data_ptr() for t in (*outs, iters))
+
+
+def test_a_route_that_does_not_fit_raises(fake_card):
+    """Forcing the warp or shared route onto a batch whose tables do not
+    fit raises before any allocation or launch; no route gives way."""
+    for route in ("warp", "shared", "bogus"):
+        with pytest.raises(ValueError, match="cannot run"):
+            likelihood_cuda.launch(
+                *_fake_inputs((2, 256, 64, 1, 3), torch.device("cuda")),
+                route=route)
+    assert fake_card.calls == [] and fake_card.allocs == []
 
 
 def test_wrapper_checks_its_inputs(fake_card):
@@ -323,15 +425,34 @@ def test_kernel_matches_plain_version_on_card(cuda_device, label, seed, shape,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case,route", ROUTED,
+                         ids=[f"{c[0]}-on-{r}" for c, r in ROUTED])
+def test_every_route_matches_plain_version_on_card(cuda_device, case, route):
+    """Each case on every route that fits it, em_path's or not."""
+    _label, seed, shape, _path = case
+    args = _on(cuda_device, random_windows(seed, *shape))
+    got, iters = likelihood_cuda.launch(*args, route=route)
+    want = likelihood_torch.infer_window_batch(*args)
+    torch.cuda.synchronize()
+    _assert_matches([t.cpu().numpy() for t in got],
+                    [t.cpu().numpy() for t in want])
+    assert (iters.cpu().numpy() >= 1).all()
+
+
+@pytest.mark.cuda
 def test_kernel_launches_give_identical_bits(cuda_device):
-    for seed, shape in ((11, (8, 12, 96, 1, 6)), (12, (2, 64, 64, 30, 3))):
+    for seed, shape in ((11, (8, 12, 96, 1, 6)), (12, (2, 64, 64, 30, 3)),
+                        (15, (9, 4, 64, 1, 3)), (16, (5, 4, 96, 16, 4))):
         args = _on(cuda_device, random_windows(seed, *shape))
-        first, iters = likelihood_cuda.launch(*args)
-        second, iters2 = likelihood_cuda.launch(*args)
-        torch.cuda.synchronize()
-        assert torch.equal(iters, iters2)
-        for a, b in zip(first, second):
-            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for route in likelihood_cuda.ROUTES:
+            if not likelihood_cuda.route_fits(route, shape[1], shape[3]):
+                continue
+            first, iters = likelihood_cuda.launch(*args, route=route)
+            second, iters2 = likelihood_cuda.launch(*args, route=route)
+            torch.cuda.synchronize()
+            assert torch.equal(iters, iters2)
+            for a, b in zip(first, second):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -345,8 +466,26 @@ def test_kernel_counts_each_launch(cuda_device):
 
 
 @pytest.mark.cuda
-def test_kernel_poisons_a_batch_whose_pairs_are_not_lexicographic(cuda_device):
+@pytest.mark.parametrize("route", likelihood_cuda.ROUTES)
+def test_kernel_poisons_a_batch_whose_pairs_are_not_lexicographic(cuda_device,
+                                                                  route):
     args = _on(cuda_device, random_windows(14, 3, 6, 64, 2, 3))
     args[3], args[4] = args[4].flip(0).contiguous(), args[3].flip(0).contiguous()
-    for out in likelihood_cuda.infer_window_batch(*args):
+    outs, iters = likelihood_cuda.launch(*args, route=route)
+    for out in outs:
         assert torch.isnan(out).all()
+    assert (iters == -1).all()
+
+
+@pytest.mark.cuda
+def test_gl_and_gof_keep_their_bits_on_every_route(cuda_device):
+    """The warp route computes GL/GOF in its own launch in the GL kernel's
+    order of summation: lik, gof and gl_rel equal the CTA routes' bits."""
+    args = _on(cuda_device, random_windows(17, 6, 4, 96, 16, 4))
+    outs = {r: likelihood_cuda.launch(*args, route=r)[0]
+            for r in likelihood_cuda.ROUTES}
+    torch.cuda.synchronize()
+    for k in (0, 3, 5):  # lik, gof, gl_rel
+        for r in ("shared", "global"):
+            assert torch.equal(outs["warp"][k].view(torch.int32),
+                               outs[r][k].view(torch.int32))

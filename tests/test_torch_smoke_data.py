@@ -3,11 +3,13 @@ their checks.
 
     python tests/test_torch_smoke_data.py slice WORKDIR MB
     python tests/test_torch_smoke_data.py hla WORKDIR [N_ALLELES REGION_LEN COVERAGE]
+    python tests/test_torch_smoke_data.py cohort WORKDIR N_SAMPLES LENGTH COVERAGE
 
 builds (or reuses) the dataset in WORKDIR and prints its paths as one JSON
 object on the last line.  chip_smoke.build_dataset runs it so, in a child
-process, because the writers (tests/synth.py, platypus_tpu.io.tabix) belong
-to the JAX package and the smoke imports none of it.
+process, because the writers (tests/synth.py, platypus_tpu.io.tabix,
+platypus_tpu.native's BAM indexer) belong to the JAX package and the smoke
+imports none of it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,31 @@ def slice_dataset(workdir, mb):
     from scaling_bench import build_dataset
 
     return build_dataset(workdir, int(mb * 1_000_000))
+
+
+def cohort_dataset(workdir, n_samples, length, coverage, seed=11):
+    """tools/cohort_bench.py's cohort (build_cohort): one indexed BAM per
+    sample (read group sample S000, S001, ...) over one synthetic chr20 of
+    `length` bp, common SNPs at drawn frequencies and one private SNP per
+    sample, 100 bp reads at `coverage`x each.  Cached in `workdir`; returns
+    dict(bam (the BAMs joined by commas, as --bamFiles takes them), ref,
+    length, n_reads, n_samples, region)."""
+    meta = os.path.join(workdir, "cohort.json")
+    if os.path.exists(meta):
+        with open(meta) as fh:
+            return json.load(fh)
+    os.makedirs(workdir, exist_ok=True)
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from cohort_bench import build_cohort
+
+    ref, bams, n_reads = build_cohort(workdir, n_samples, length, coverage,
+                                      seed=seed)
+    info = dict(bam=",".join(bams), ref=ref, length=length, n_reads=n_reads,
+                n_samples=n_samples, region=f"chr20:1-{length}")
+    with open(f"{meta}.tmp", "w") as fh:
+        json.dump(info, fh)
+    os.replace(f"{meta}.tmp", meta)
+    return info
 
 
 def hla_dataset(workdir, n_alleles=160, region_len=2000, coverage=30, seed=41):
@@ -110,22 +137,28 @@ def test_hla_panel_outnumbers_the_ranking_cap(tmp_path):
 
 
 @pytest.mark.parametrize("kind,args", [("slice", (0.02,)),
-                                       ("hla", (160, 300, 2))])
+                                       ("hla", (160, 300, 2)),
+                                       ("cohort", (3, 4000, 2))])
 def test_child_build_matches_in_process_build(tmp_path, kind, args):
     """chip_smoke.build_dataset (this file's command line in a child
     process) builds the same dataset as the function, without importing
     jax (the child fails if it does)."""
     from chip_smoke import build_dataset
 
-    build = {"slice": slice_dataset, "hla": hla_dataset}[kind]
+    build = BUILDERS[kind]
     info = build_dataset(kind, str(tmp_path), *args)
-    assert os.path.exists(info["bam"]) and os.path.exists(info["ref"])
+    assert os.path.exists(info["ref"])
+    assert all(os.path.exists(bam) for bam in info["bam"].split(","))
     assert build(str(tmp_path), *args) == info
+
+
+BUILDERS = {"slice": slice_dataset, "hla": hla_dataset,
+            "cohort": cohort_dataset}
 
 
 def main(argv) -> int:
     kind, workdir, *args = argv
-    build = {"slice": slice_dataset, "hla": hla_dataset}[kind]
+    build = BUILDERS[kind]
     info = build(workdir, *(float(a) if "." in a else int(a) for a in args))
     if "jax" in sys.modules:
         raise RuntimeError("building a dataset imported jax")
