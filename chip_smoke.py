@@ -1239,7 +1239,7 @@ class InferRecorder:
         self._mod.infer_window_batch_reference = self._plain
 
 
-def iteration_ms(args, iters, route):
+def iteration_ms(args, iters):
     """The warp route's measured latency of one EM iteration on a batch:
     its device time at em_iters = the slowest window's iterations, less
     its time at em_iters=1, over the iterations between (None where no
@@ -1247,10 +1247,10 @@ def iteration_ms(args, iters, route):
     from platypus_tpu_torch.ops import likelihood_cuda
 
     top = int(iters.max())
-    if top <= 1 or route != "warp":
+    if top <= 1:
         return None
     full, one = (cuda_ms(lambda k=k: likelihood_cuda.launch(
-        *args, em_iters=k, route=route), 20, hold=True) for k in (top, 1))
+        *args, em_iters=k, route="warp"), 20, hold=True) for k in (top, 1))
     return (full - one) / (top - 1)
 
 
@@ -1296,7 +1296,7 @@ def check_infer_batches(recorder, smi, label="slice", plain=True):
               + f"EM iterations max {int(iters.max())}, mean "
               f"{float(iters.mean()):.2f}; {g} guard-band windows", flush=True)
     bound_ms, bound_by = infer_bound(works)
-    per_iter = iteration_ms(slowest[0], slowest[1], "warp") if slowest else None
+    per_iter = iteration_ms(*slowest[:2]) if slowest else None
     chain = (f"{sum(tops) * per_iter:.6f} ms ({sum(tops)} iterations on the "
              f"batches' slowest windows x {per_iter * 1e3:.4f} us an "
              f"iteration of the warp route)" if per_iter else "not measured")

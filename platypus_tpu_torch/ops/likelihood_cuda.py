@@ -16,10 +16,10 @@ writes NaN into every output of a batch whose pairs differ.
 
 em_path picks the kernel's route from (Hmax, I) alone: "warp" (one warp
 per window, a lane per individual, GL/GOF in the same launch) for small
-windows of at most 32 individuals, else one CTA per
-window with its tables in shared memory ("shared", up to 227 KB) or, for
-example at Hmax = 256 with one individual or Hmax = 64 with 30, in a global
-workspace ("global").
+windows of at most 32 individuals, else one CTA per window with its
+tables in shared memory ("shared", up to 227 KB) or, for example at
+Hmax = 256 with one individual or Hmax = 64 with 30, in a global workspace
+("global").
 """
 
 from __future__ import annotations
@@ -34,12 +34,11 @@ from .likelihood_torch import infer_window_batch as infer_window_batch_reference
 # reduction slots).
 SHARED_LIMIT = 232448
 _EM_STATIC_BYTES = 3 * 8 * 4
-# The warp route: windows (warps) per block; the largest Hmax its kernel is
-# built for and the most individuals (a lane each); and, per Hmax, the most
-# individuals em_path sends to it: where it beat the CTA route and the
-# PR 10 design in a sweep of Hmax 2-6 at I = 1-30 on the card (PERF.md
-# section 6).
-WARP_WINDOWS = 4
+# The warp route: the largest Hmax its kernel is built for and the most
+# individuals (a lane each); and, per Hmax, the most individuals em_path
+# sends to it: where it beat the CTA route and the previous two-kernel
+# design in a sweep of Hmax 2-6 at I = 1-30 on the card (PERF.md
+# section 6).  Its shared memory, a few KB a window, always fits.
 WARP_KERNEL_MAX_HAPS, WARP_MAX_IND = 6, 32
 WARP_ROUTE_LIMIT = {1: 32, 2: 32, 3: 32, 4: 32, 5: 2, 6: 2}
 ROUTES = ("warp", "shared", "global")
@@ -52,14 +51,6 @@ def em_table_bytes(n_haps: int, n_ind: int) -> int:
     side's log sums [I], in float32."""
     G = n_haps * (n_haps + 1) // 2
     return 4 * (2 * n_ind * G + G + 2 * n_haps + n_ind)
-
-
-def warp_table_bytes(n_haps: int, n_ind: int) -> int:
-    """Shared-memory bytes of one window on the warp route
-    (warp_table_floats): [I, G] (gl staged for the lanes' rows, then the
-    rows' log responsibilities), log_resp [G] and 32 per-individual terms
-    of the posteriors."""
-    return 4 * ((n_ind + 1) * n_haps * (n_haps + 1) // 2 + 32)
 
 
 def em_path(n_haps: int, n_ind: int) -> str:
@@ -79,9 +70,7 @@ def route_fits(route: str, n_haps: int, n_ind: int) -> bool:
     most WARP_MAX_IND individuals; the shared route needs one window's
     tables in shared memory."""
     if route == "warp":
-        return (n_haps <= WARP_KERNEL_MAX_HAPS and n_ind <= WARP_MAX_IND
-                and WARP_WINDOWS * warp_table_bytes(n_haps, n_ind)
-                <= SHARED_LIMIT)
+        return n_haps <= WARP_KERNEL_MAX_HAPS and n_ind <= WARP_MAX_IND
     if route == "shared":
         return em_table_bytes(n_haps, n_ind) + _EM_STATIC_BYTES <= SHARED_LIMIT
     return route == "global"
