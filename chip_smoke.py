@@ -1058,16 +1058,20 @@ def infer_bound(works):
     return times[by], by
 
 
-def gl_rel_summation_bound(args, outs):
-    """For gl_rel, a difference of two f32 sums over an individual's reads
-    (gl of a genotype less the row's max): the largest ratio, over the
-    finite entries of rows with reads, of |outs' gl_rel - the float64
-    value| to the recursive-summation error bound of f32 (Higham's
-    gamma_n: n terms, 2^-24 each, on the sum of the terms' magnitudes; the
-    per-read terms are <= 0, so that sum is |gl|) plus one rounding of
-    each term: 2 n 2^-24 (|gl_g| + |gl_max|) with n the row's reads.  A
-    value <= 1 is within what float32 can promise, whatever the order."""
-    import numpy as np
+GL_FLOOR = -690.77552  # gl_rel's floor, ln 1e-300 (likelihood_torch)
+# Where gl_rel is out of its atol only because one f32 ulp of the row's
+# |gl| exceeds it: the most the kernel's distance from float64 may be, as a
+# multiple of the plain version's on the same entries (both are f32 sums of
+# the same terms in another order).
+WIDE_GL_REL_FACTOR = 2.0
+
+
+def gl_rel_float64(args):
+    """gl_rel of a batch in float64 on the CPU (the plain version's
+    per-read terms, sums over each individual's reads, the row's max and
+    the floor) -> numpy (gl_rel [W, I, G], max(|gl|, |row max|) [W, I,
+    G], the entries that are on: an enabled genotype in a row with
+    reads)."""
     import torch
 
     from platypus_tpu_torch.ops import likelihood_torch
@@ -1078,15 +1082,47 @@ def gl_rel_summation_bound(args, outs):
     gl = torch.matmul(pr, oh.double().transpose(1, 2)).transpose(1, 2)
     gm = (hm[:, h1.long()] & hm[:, h2.long()])[:, None, :]
     top = torch.where(gm, gl, float("-inf")).amax(dim=2, keepdim=True)
-    rel = torch.clamp_min(gl - torch.where(torch.isfinite(top), top, 0.0),
-                          -690.77552)
-    n = (oh != 0).sum(dim=2, keepdim=True).double()
-    bound = 2 * n * 2.0 ** -24 * (gl.abs() + torch.where(
-        torch.isfinite(top), top.abs(), 0.0)) + 1e-30
-    got = outs[5].cpu().double()
-    keep = gm & hr[:, :, None] & torch.isfinite(got) & (rel > -690.7755)
-    ratio = ((got - rel).abs() / bound)[keep]
-    return float(ratio.max()) if ratio.numel() else 0.0
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    rel = torch.clamp_min(gl - top, GL_FLOOR)
+    mag = torch.maximum(gl.abs(), top.abs().expand_as(gl))
+    return rel.numpy(), mag.numpy(), (gm & hr[:, :, None]).numpy()
+
+
+def check_wide_gl_rel(args, got, want):
+    """gl_rel of the kernel (`got`) against the plain version (`want`),
+    numpy, where compare_inference found it out of tolerance.  The
+    non-finite entries must still agree element for element, and every
+    entry is held to gl_rel's tolerance except the wide ones: on, finite
+    and above the floor in both versions and in float64, in a row where
+    one f32 ulp of max(|gl|, |row max|) exceeds atol, so that no order of
+    summation can meet atol.  There the kernel's largest distance from
+    float64 must stay within WIDE_GL_REL_FACTOR times the plain version's
+    on the same entries, plus atol.  Returns (passed, a line that says
+    what was compared)."""
+    import numpy as np
+
+    rtol, atol = infer_tolerance("gl_rel")
+    rel, mag, on = gl_rel_float64(args)
+    fin = np.isfinite(want)
+    if not (np.array_equal(np.isfinite(got), fin)
+            and np.array_equal(got[~fin], want[~fin], equal_nan=True)):
+        return False, "gl_rel's non-finite entries differ"
+    wide = (on & fin & (got > GL_FLOOR) & (want > GL_FLOOR) & (rel > GL_FLOOR)
+            & (np.spacing(mag.astype(np.float32)) > atol))
+    rest = fin & ~wide
+    if not np.allclose(got[rest], want[rest], rtol=rtol, atol=atol):
+        return False, ("gl_rel out of tolerance on entries where f32 can "
+                       "meet it")
+    kernel = float(np.abs(got[wide] - rel[wide]).max()) if wide.any() else 0.0
+    plain = float(np.abs(want[wide] - rel[wide]).max()) if wide.any() else 0.0
+    passed = kernel <= WIDE_GL_REL_FACTOR * plain + atol
+    return passed, (f"gl_rel on {int(wide.sum())} entries where one f32 ulp "
+                    f"of |gl| exceeds atol {atol:g} (|gl| up to "
+                    f"{float(mag[wide].max()) if wide.any() else 0.0:.1f}): "
+                    f"largest distance from float64 kernel {kernel:.3e}, "
+                    f"plain version {plain:.3e} (limit "
+                    f"{WIDE_GL_REL_FACTOR:g}x plain + atol); every other "
+                    f"entry within tolerance, non-finite entries equal")
 
 
 def check_infer_batch(what, args, em_iters=100, route=None):
@@ -1100,8 +1136,8 @@ def check_infer_batch(what, args, em_iters=100, route=None):
 
     from platypus_tpu_torch.ops import likelihood_cuda, likelihood_torch
 
-    H, I = args[0].shape[1], args[1].shape[1]
-    route = route or likelihood_cuda.em_path(H, I)
+    _W, H, R = args[0].shape
+    route = route or likelihood_cuda.em_path(H, args[1].shape[1], R)
     got, iters = likelihood_cuda.launch(*args, em_iters=em_iters, route=route)
     again, iters2 = likelihood_cuda.launch(*args, em_iters=em_iters,
                                            route=route)
@@ -1112,18 +1148,15 @@ def check_infer_batch(what, args, em_iters=100, route=None):
                              "kernel gave different bits")
     errs, guard, bad = compare_inference([t.cpu().numpy() for t in got],
                                          [t.cpu().numpy() for t in want])
-    if bad == ["gl_rel"]:
+    if "gl_rel" in bad:
         # Where |gl| is large (tens of reads an individual), one f32 ulp of
-        # it passes gl_rel's atol and no summation order meets it: hold both
-        # versions to f32's summation bound around the float64 value.
-        kernel, plain = (gl_rel_summation_bound(args, outs)
-                         for outs in (got, want))
+        # it exceeds gl_rel's atol and no summation order meets it.
+        passed, note = check_wide_gl_rel(args, got[5].cpu().numpy(),
+                                         want[5].cpu().numpy())
         print(f"{what}: gl_rel differs from the plain version by "
-              f"{errs['gl_rel']:.3e}, past its tolerance; against float64, "
-              f"the kernel is at {kernel:.3f} and the plain version at "
-              f"{plain:.3f} of f32's summation bound", flush=True)
-        if kernel <= 1.0:
-            bad = []
+              f"{errs['gl_rel']:.3e}, past its tolerance; {note}", flush=True)
+        if passed:
+            bad.remove("gl_rel")
     if bad:
         raise AssertionError(f"{what}: fused inference kernel ({route} "
                              f"route) != plain version in {bad}: {errs}")
@@ -1180,7 +1213,7 @@ def check_infer_kernel(device):
     for k, shape in enumerate(INFER_SHAPES):
         args = [torch.from_numpy(a).to(device)
                 for a in random_windows(200 + k, *shape)]
-        chosen = likelihood_cuda.em_path(shape[1], shape[3])
+        chosen = likelihood_cuda.em_path(shape[1], shape[3], shape[2])
         routes = [r for r in likelihood_cuda.ROUTES
                   if likelihood_cuda.route_fits(r, shape[1], shape[3])]
         for route in routes:

@@ -14,12 +14,12 @@ h1/h2 must be the lexicographic genotype pairs of Hmax
 kernel's M-step finds the genotypes of each hap from that order, and it
 writes NaN into every output of a batch whose pairs differ.
 
-em_path picks the kernel's route from (Hmax, I) alone: "warp" (one warp
+em_path picks the kernel's route from (Hmax, I, Rmax): "warp" (one warp
 per window, a lane per individual, GL/GOF in the same launch) for small
-windows of at most 32 individuals, else one CTA per window with its
-tables in shared memory ("shared", up to 227 KB) or, for example at
-Hmax = 256 with one individual or Hmax = 64 with 30, in a global workspace
-("global").
+windows of at most 32 individuals and few enough reads, else one CTA per
+window with its tables in shared memory ("shared", up to 227 KB) or, for
+example at Hmax = 256 with one individual or Hmax = 64 with 30, in a
+global workspace ("global").
 """
 
 from __future__ import annotations
@@ -34,13 +34,20 @@ from .likelihood_torch import infer_window_batch as infer_window_batch_reference
 # reduction slots).
 SHARED_LIMIT = 232448
 _EM_STATIC_BYTES = 3 * 8 * 4
-# The warp route: the largest Hmax its kernel is built for and the most
-# individuals (a lane each); and, per Hmax, the most individuals em_path
-# sends to it: where it beat the CTA route and the previous two-kernel
-# design in a sweep of Hmax 2-6 at I = 1-30 on the card (PERF.md
-# section 6).  Its shared memory, a few KB a window, always fits.
-WARP_KERNEL_MAX_HAPS, WARP_MAX_IND = 6, 32
-WARP_ROUTE_LIMIT = {1: 32, 2: 32, 3: 32, 4: 32, 5: 2, 6: 2}
+# The warp route: the most individuals its kernel takes (a lane each).  For
+# each Hmax it has a kernel for (the batch buckets up to 4,
+# parallel/batch.py geom_bucket): the individuals it sums in one pass over
+# a window's reads (kC, csrc/infer_window.cu gl_gof_warp), and the most
+# passes x Rmax em_path sends to it.  One warp walks all of its window's
+# per-read terms, once a pass, where the CTA routes spread them over
+# blocks: the limits are where it beat the CTA route and the previous
+# two-kernel design on the card (PERF.md section 6: full windows of Hmax
+# 2-6 with 1-30 individuals and 8-64 reads each, and the slice's and the
+# cohorts' batches at 6x and 30x).  Its shared memory, a few KB a window,
+# always fits.
+WARP_MAX_IND = 32
+WARP_PASS_IND = {2: 8, 3: 8, 4: 4}
+WARP_ROUTE_LIMIT = {2: 7680, 3: 1024, 4: 1536}
 ROUTES = ("warp", "shared", "global")
 
 
@@ -53,24 +60,31 @@ def em_table_bytes(n_haps: int, n_ind: int) -> int:
     return 4 * (2 * n_ind * G + G + 2 * n_haps + n_ind)
 
 
-def em_path(n_haps: int, n_ind: int) -> str:
-    """The kernel's route for a batch of Hmax `n_haps` and `n_ind`
-    individuals: 'warp' up to WARP_ROUTE_LIMIT[n_haps] individuals; else
-    'shared' when one window's tables and the EM kernel's reduction slots
-    fit in SHARED_LIMIT bytes; else 'global' (a workspace in device
-    memory)."""
-    if n_ind <= WARP_ROUTE_LIMIT.get(n_haps, 0):
+def warp_read_passes(n_haps: int, n_ind: int, n_reads: int) -> int:
+    """Passes over a window's reads times Rmax: the per-read steps each
+    lane of the warp route takes for GL/GOF."""
+    return -(-n_ind // WARP_PASS_IND[n_haps]) * n_reads
+
+
+def em_path(n_haps: int, n_ind: int, n_reads: int) -> str:
+    """The kernel's route for a batch of Hmax `n_haps`, `n_ind` individuals
+    and Rmax `n_reads`: 'warp' where it fits (route_fits) and
+    warp_read_passes is at most WARP_ROUTE_LIMIT[n_haps]; else 'shared'
+    when one window's tables and the EM kernel's reduction slots fit in
+    SHARED_LIMIT bytes; else 'global' (a workspace in device memory)."""
+    if (route_fits("warp", n_haps, n_ind) and warp_read_passes(
+            n_haps, n_ind, n_reads) <= WARP_ROUTE_LIMIT[n_haps]):
         return "warp"
     return "shared" if route_fits("shared", n_haps, n_ind) else "global"
 
 
 def route_fits(route: str, n_haps: int, n_ind: int) -> bool:
     """Whether `route` can run a batch of (n_haps, n_ind): the warp route
-    has a kernel up to WARP_KERNEL_MAX_HAPS haps and a lane for each of at
-    most WARP_MAX_IND individuals; the shared route needs one window's
+    has a kernel for each Hmax of WARP_ROUTE_LIMIT and a lane for each of
+    at most WARP_MAX_IND individuals; the shared route needs one window's
     tables in shared memory."""
     if route == "warp":
-        return n_haps <= WARP_KERNEL_MAX_HAPS and n_ind <= WARP_MAX_IND
+        return n_haps in WARP_ROUTE_LIMIT and n_ind <= WARP_MAX_IND
     if route == "shared":
         return em_table_bytes(n_haps, n_ind) + _EM_STATIC_BYTES <= SHARED_LIMIT
     return route == "global"
@@ -109,14 +123,13 @@ def _check_inputs(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask,
 def launch(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask, has_reads,
            em_iters: int = 100, route: str | None = None):
     """The kernel on CUDA tensors: (the seven outputs of
-    infer_window_batch, EM iterations each window ran [W] int32), all
-    views of one float32 buffer (with the global route's workspace).
+    infer_window_batch, EM iterations each window ran [W] int32).
     `route` (one of ROUTES, em_path's choice by default) picks the
     kernel's route; a route whose tables do not fit raises.  Raises when
     the library does not build or the launch is refused."""
     W, H, R, I, V = _check_inputs(loglik, sample_onehot, hap_mask, h1, h2,
                                   var_hap_mask, has_reads)
-    route = em_path(H, I) if route is None else route
+    route = em_path(H, I, R) if route is None else route
     if route not in ROUTES or not route_fits(route, H, I):
         raise ValueError(f"infer_window_batch: route {route!r} cannot run "
                          f"Hmax={H}, I={I}")
@@ -124,27 +137,24 @@ def launch(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask, has_reads,
     G = H * (H + 1) // 2
     tol = min(1e-3, 1.0 / (I * 4))  # reference eps, cpopulation.pyx:705
     lib = align_cuda.load("infer_window")
-    # lik, em, gof, gl_rel [W, I, G]; freq [W, H]; ratios [W, V]; margin,
-    # iters [W]; then the workspace on the global route.
-    sizes = (W * I * G,) * 4 + (W * H, W * V, W, W)
-    work = W * em_table_bytes(H, I) // 4 if route == "global" else 0
-    buf = torch.empty(sum(sizes) + work, dtype=torch.float32, device=dev)
-    parts, at = [], 0
-    for n in sizes:
-        parts.append(buf[at:at + n])
-        at += n
-    lik, em, gof, gl_rel = (p.view(W, I, G) for p in parts[:4])
-    freq, ratios = parts[4].view(W, H), parts[5].view(W, V)
-    margin, iters = parts[6], parts[7].view(torch.int32)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    lik, em, gof, gl_rel = (empty(W, I, G) for _ in range(4))
+    freq, ratios, margin = empty(W, H), empty(W, V), empty(W)
+    iters = empty(W, dtype=torch.int32)
     outs = (lik, em, freq, gof, ratios, gl_rel, margin)
     if W == 0:
         return outs, iters
-    workspace = buf[at:].data_ptr() if work else None
+    workspace = (empty(W * em_table_bytes(H, I) // 4) if route == "global"
+                 else None)
     align_cuda._launch(
         dev, "infer_window", lib.ptt_infer_window_batch,
         *(t.data_ptr() for t in (loglik, sample_onehot, hap_mask, h1, h2,
                                  var_hap_mask, has_reads, *outs, iters)),
-        workspace, W, H, R, I, V, int(em_iters), tol, ROUTES.index(route))
+        None if workspace is None else workspace.data_ptr(), W, H, R, I, V,
+        int(em_iters), tol, ROUTES.index(route))
     return outs, iters
 
 

@@ -18,13 +18,15 @@ collects this file and runs the card tests.
 """
 
 import contextlib
+import re
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import INFER_SHAPES, compare_inference, random_windows
+from chip_smoke import (GL_FLOOR, INFER_SHAPES, check_wide_gl_rel,
+                        compare_inference, random_windows)
 from platypus_tpu_torch.ops import align_cuda, likelihood_cuda, likelihood_torch
 from platypus_tpu_torch.ops.likelihood import genotype_index_pairs
 
@@ -71,7 +73,7 @@ def test_wrapper_on_cpu_matches_jax(label, seed, shape, path):
     rows, individuals without reads (I > 2)."""
     arrays = random_windows(seed, *shape)
     W, Hb, Rb, I, Vb = shape
-    assert likelihood_cuda.em_path(Hb, I) == path
+    assert likelihood_cuda.em_path(Hb, I, Rb) == path
     assert not arrays[2][-1].any() and not arrays[6][-1].any()
     got = [t.numpy() for t in likelihood_cuda.infer_window_batch(
         *(torch.from_numpy(a) for a in arrays))]
@@ -89,7 +91,7 @@ def test_wrapper_on_cpu_matches_jax_with_few_iterations():
 
 def test_smoke_shapes_cover_both_paths():
     """The smoke's synthetic batches reach every route (em_path's choice)."""
-    paths = {likelihood_cuda.em_path(Hb, I) for _W, Hb, _R, I, _V in INFER_SHAPES}
+    paths = {likelihood_cuda.em_path(Hb, I, R) for _W, Hb, R, I, _V in INFER_SHAPES}
     assert paths == {"warp", "shared", "global"}
 
 
@@ -102,52 +104,84 @@ def test_em_path_splits_at_227_kb(monkeypatch):
     for I in (1, 2, 30):
         H = max(h for h in range(1, 400)
                 if likelihood_cuda.em_table_bytes(h, I) + slots <= limit)
-        assert likelihood_cuda.em_path(H, I) == "shared"
-        assert likelihood_cuda.em_path(H + 1, I) == "global"
+        assert likelihood_cuda.em_path(H, I, 64) == "shared"
+        assert likelihood_cuda.em_path(H + 1, I, 64) == "global"
     assert likelihood_cuda.em_table_bytes(256, 1) == 4 * (2 * 32896 + 32896
                                                           + 2 * 256 + 1)
-    assert likelihood_cuda.em_path(256, 1) == "global"
-    assert likelihood_cuda.em_path(64, 30) == "global"
-    assert likelihood_cuda.em_path(128, 1) == "shared"
+    assert likelihood_cuda.em_path(256, 1, 64) == "global"
+    assert likelihood_cuda.em_path(64, 30, 256) == "global"
+    assert likelihood_cuda.em_path(128, 1, 64) == "shared"
     # A table that lands on the limit exactly takes shared memory.
     wide = max(likelihood_cuda.WARP_ROUTE_LIMIT) + 1
     for size, path in ((limit - slots, "shared"), (limit - slots + 1, "global")):
         monkeypatch.setattr(likelihood_cuda, "em_table_bytes",
                             lambda H, I, size=size: size)
-        assert likelihood_cuda.em_path(wide, 1) == path
+        assert likelihood_cuda.em_path(wide, 1, 64) == path
 
 
-@pytest.mark.parametrize("H,I,route", [
-    (2, 1, "warp"), (4, 1, "warp"), (3, 16, "warp"), (4, 25, "warp"),
-    (4, 30, "warp"), (4, 32, "warp"), (5, 1, "warp"), (6, 2, "warp"),
-    (5, 3, "shared"), (6, 16, "shared"), (2, 33, "shared"),
-    (8, 25, "shared"), (64, 1, "shared"), (24, 4, "shared"),
-    (256, 1, "global"), (64, 30, "global"), (160, 2, "global")])
-def test_route_is_chosen_from_haps_and_individuals(H, I, route):
-    """em_path decides from (Hmax, I) alone: the warp route up to
-    WARP_ROUTE_LIMIT[Hmax] individuals (one lane each), then the CTA
-    routes; the slice's Hb <= 4 batches and a cohort's Hb <= 4 batches at
-    I <= 32 take the warp route.  route_fits says which routes a batch may
-    be forced to."""
-    assert likelihood_cuda.em_path(H, I) == route
+@pytest.mark.parametrize("H,I,R,route", [
+    (2, 1, 64, "warp"), (4, 1, 64, "warp"), (3, 16, 128, "warp"),
+    (4, 25, 192, "warp"), (4, 30, 192, "warp"), (4, 32, 256, "shared"),
+    (5, 1, 64, "shared"), (6, 2, 64, "shared"), (5, 3, 64, "shared"),
+    (6, 16, 128, "shared"), (2, 33, 64, "shared"), (8, 25, 192, "shared"),
+    (64, 1, 64, "shared"), (24, 4, 64, "shared"), (256, 1, 64, "global"),
+    (64, 30, 256, "global"), (160, 2, 64, "global"),
+    (2, 30, 1536, "warp"), (2, 30, 2048, "shared"), (3, 30, 256, "warp"),
+    (3, 30, 384, "shared"), (4, 16, 768, "shared")])
+def test_route_is_chosen_from_haps_and_individuals(H, I, R, route):
+    """em_path decides from (Hmax, I, Rmax): the warp route for Hmax 2-4
+    up to 32 individuals (one lane each) while its passes over the reads x
+    Rmax stay within WARP_ROUTE_LIMIT[Hmax], then the CTA routes; the
+    slice's batches (Hb 2 or 4, I = 1, Rb = 64) and the 16-sample cohort's
+    small-Hb batches take the warp route.  route_fits says which routes a
+    batch may be forced to, whatever its reads."""
+    assert likelihood_cuda.em_path(H, I, R) == route
     fits = [r for r in likelihood_cuda.ROUTES
             if likelihood_cuda.route_fits(r, H, I)]
     assert route in fits and "global" in fits
-    assert ("warp" in fits) == (H <= likelihood_cuda.WARP_KERNEL_MAX_HAPS
+    assert ("warp" in fits) == (H in likelihood_cuda.WARP_ROUTE_LIMIT
                                 and I <= 32)
 
 
 def test_warp_route_limit_stays_inside_its_kernel():
-    """Every Hmax the warp route takes has a kernel instance and at most a
-    lane per individual; Hmax past the table takes a CTA route."""
+    """Every Hmax the warp route takes has a kernel instance, whose
+    individuals a pass over the reads (kC) WARP_PASS_IND states; the read
+    limit applies to passes x Rmax; past 32 individuals or the table's
+    Hmax a CTA route runs."""
     limit = likelihood_cuda.WARP_ROUTE_LIMIT
-    assert max(limit) <= likelihood_cuda.WARP_KERNEL_MAX_HAPS
+    assert sorted(limit) == sorted(_warp_kernel_instances())
+    with open(align_cuda.source("infer_window")) as fh:
+        small, wide, narrow = map(int, re.search(
+            r"constexpr int kC = kG <= (\d+) \? (\d+) : (\d+);",
+            fh.read()).groups())
     for H, top in limit.items():
-        assert 1 <= top <= likelihood_cuda.WARP_MAX_IND
-        assert likelihood_cuda.em_path(H, top) == "warp"
-        assert likelihood_cuda.em_path(H, top + 1) != "warp"
+        kC = wide if H * (H + 1) // 2 <= small else narrow
+        assert likelihood_cuda.WARP_PASS_IND[H] == kC
+        assert likelihood_cuda.em_path(H, 1, top) == "warp"
+        assert likelihood_cuda.em_path(H, 1, top + 1) != "warp"
+        assert likelihood_cuda.em_path(H, kC, top) == "warp"
+        assert likelihood_cuda.em_path(H, kC + 1, top) != "warp"
+        assert likelihood_cuda.em_path(H, 33, 1) != "warp"
     for I in (1, 2, 16):
-        assert likelihood_cuda.em_path(max(limit) + 1, I) != "warp"
+        assert likelihood_cuda.em_path(max(limit) + 1, I, 8) != "warp"
+
+
+def _warp_kernel_instances():
+    """The Hmax of each infer_window_warp_kernel instance the C entry
+    launches."""
+    with open(align_cuda.source("infer_window")) as fh:
+        text = fh.read()
+    return [int(h) for h in re.findall(
+        r"case (\d+): infer_window_warp_kernel<(?:\d+)>", text)]
+
+
+def test_warp_route_serves_every_small_bucket():
+    """The warp route has a kernel for each Hmax of at most 4 that the
+    batches' buckets (parallel/batch.py geom_bucket) give, and no other."""
+    from platypus_tpu_torch.parallel.batch import geom_bucket
+
+    buckets = sorted({geom_bucket(n) for n in range(1, 5)})
+    assert buckets == sorted(_warp_kernel_instances()) == [2, 3, 4]
 
 
 def _hap_genotypes(n_haps):
@@ -159,6 +193,68 @@ def _hap_genotypes(n_haps):
     hi = torch.maximum(k[None, :], k[:, None])
     index = lo * n_haps - lo * (lo - 1) // 2 + (hi - lo)
     return index, k[None, :] == k[:, None]
+
+
+def _deep_batch():
+    """A batch of 4 windows, Hmax 4, 3 individuals with 64 reads each: in
+    window 0 hap 3 is far from every read (its genotypes' gl_rel floored),
+    window 1 has small log-likelihoods (|gl| ~ 20, where f32 meets gl_rel's
+    atol), windows 2-3 have |gl| in the hundreds (one f32 ulp past atol).
+    Returns (numpy inputs, the same batch with its reads in another order:
+    another summation order of every sum)."""
+    rng = np.random.default_rng(17)
+    W, H, I, per_ind = 4, 4, 3, 64
+    R = I * per_ind
+    ll = np.maximum(-np.abs(rng.normal(4.0, 4.0, (W, H, R))),
+                    -300.0).astype(np.float32)
+    ll[0, 3] = -30.0
+    ll[1] *= np.float32(0.1)
+    oh = np.zeros((W, I, R), np.float32)
+    oh[:, np.repeat(np.arange(I), per_ind), np.arange(R)] = 1.0
+    vm = np.zeros((W, 3, H), bool)
+    vm[:, :, 1:] = rng.random((W, 3, H - 1)) < 0.5
+    h1, h2 = genotype_index_pairs(H)
+    arrays = [ll, oh, np.ones((W, H), bool), h1.astype(np.int32),
+              h2.astype(np.int32), vm, np.ones((W, I), bool)]
+    perm = rng.permutation(R)
+    permuted = list(arrays)
+    permuted[0] = np.ascontiguousarray(ll[:, :, perm])
+    permuted[1] = np.ascontiguousarray(oh[:, :, perm])
+    return arrays, permuted
+
+
+def _gl_rel(arrays):
+    return likelihood_torch.infer_window_batch(
+        *(torch.from_numpy(a) for a in arrays))[5].numpy()
+
+
+@pytest.mark.parametrize("fault", [None, "floor dropped", "-inf", "nan",
+                                   "narrow entry off", "wide entry off"])
+def test_wide_gl_rel_check_passes_only_f32_rounding(fault):
+    """chip_smoke.check_wide_gl_rel, the smoke's check of gl_rel where it
+    misses atol 1e-5 against the plain version: another summation order
+    passes, while a dropped floor, a non-finite value where the plain
+    version is finite, an entry off where f32 can meet atol, or an entry
+    off by far more than the plain version's own distance from float64,
+    each fail."""
+    arrays, permuted = _deep_batch()
+    want, got = _gl_rel(arrays), _gl_rel(permuted)
+    args = [torch.from_numpy(a) for a in arrays]
+    assert (want[0] == np.float32(GL_FLOOR)).any()
+    fin = np.isfinite(want)
+    assert np.abs(got[fin] - want[fin]).max() > 1e-5  # past atol somewhere
+    got = got.copy()
+    if fault == "floor dropped":
+        floored = want == np.float32(GL_FLOOR)
+        got[floored] = GL_FLOOR - 500.0
+    elif fault in ("-inf", "nan"):
+        got[2, 1, 4] = float(fault)
+    elif fault == "narrow entry off":
+        got[1, 0, 3] += 1e-2
+    elif fault == "wide entry off":
+        got[3, 2, 5] += 20 * max(np.abs(got - want).max(), 1e-5)
+    passed, note = check_wide_gl_rel(args, got, want)
+    assert passed == (fault is None), note
 
 
 @pytest.mark.parametrize("H", [1, 2, 5, 12, 33])
@@ -213,12 +309,6 @@ class _Fake:
 
     def data_ptr(self):
         return self._t.data_ptr()
-
-    def __getitem__(self, key):
-        return _Fake(self._t[key], self.device)
-
-    def view(self, *shape):
-        return _Fake(self._t.view(*shape), self.device)
 
 
 def _fake_inputs(shape, device, seed=7):
@@ -294,34 +384,31 @@ def test_launch_passes_a_workspace_only_on_the_global_path(fake_card, shape,
 @pytest.mark.parametrize("shape,route", [((3, 4, 64, 2, 3), "warp"),
                                          ((3, 64, 64, 1, 3), "shared"),
                                          ((2, 64, 64, 30, 3), "global")])
-def test_outputs_are_views_of_one_buffer(fake_card, shape, route):
-    """One allocation a launch: lik, em, gof, gl_rel [W, I, G], freq
-    [W, H], ratios [W, V], margin and iters [W] (int32), and on the global
-    route the [W, table] workspace, back to back in one float32 buffer; the
-    route reaches the entry as its index in ROUTES."""
+def test_outputs_and_workspace_allocations(fake_card, shape, route):
+    """A launch allocates lik, em, gof, gl_rel [W, I, G], freq [W, H],
+    ratios [W, V], margin [W] float32 and iters [W] int32, and on the
+    global route the [W, table] float32 workspace; the entry gets their
+    pointers and the route as its index in ROUTES."""
     W, Hb, Rb, I, Vb = shape
     G = Hb * (Hb + 1) // 2
     outs, iters = likelihood_cuda.launch(
         *_fake_inputs(shape, torch.device("cuda")))
-    (buf,) = fake_card.allocs
-    assert buf.dtype == torch.float32
     (_dev, args), = fake_card.calls
     assert args[23] == likelihood_cuda.ROUTES.index(route)
-    lik, em, freq, gof, ratios, gl_rel, margin = outs
-    sizes = [("lik", lik, W * I * G), ("em", em, W * I * G),
-             ("gof", gof, W * I * G), ("gl_rel", gl_rel, W * I * G),
-             ("freq", freq, W * Hb), ("ratios", ratios, W * Vb),
-             ("margin", margin, W), ("iters", iters, W)]
-    at = buf.data_ptr()
-    for name, t, n in sizes:
-        assert t.data_ptr() == at, name
-        at += 4 * n
-    assert iters._t.dtype == torch.int32 and tuple(lik._t.shape) == (W, I, G)
-    work = W * likelihood_cuda.em_table_bytes(Hb, I) if route == "global" else 0
-    assert buf._t.numel() * 4 == at - buf.data_ptr() + work
-    assert args[15] == (at if route == "global" else None)
-    # The pointers the entry got are those views'.
+    want = [(W, I, G)] * 2 + [(W, Hb), (W, I, G), (W, Vb), (W, I, G), (W,)]
+    assert [tuple(t.shape) for t in outs] == want
+    assert all(t.dtype == torch.float32 for t in outs)
+    assert tuple(iters.shape) == (W,) and iters.dtype == torch.int32
     assert args[7:15] == tuple(t.data_ptr() for t in (*outs, iters))
+    work = fake_card.allocs[8:]
+    if route == "global":
+        (work,) = work
+        assert work.dtype == torch.float32
+        assert work._t.numel() * 4 == W * likelihood_cuda.em_table_bytes(Hb, I)
+        assert args[15] == work.data_ptr()
+    else:
+        assert work == [] and args[15] is None
+    assert len(fake_card.allocs) == 8 + (route == "global")
 
 
 def test_a_route_that_does_not_fit_raises(fake_card):
