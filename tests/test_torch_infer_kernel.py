@@ -198,8 +198,9 @@ def _hap_genotypes(n_haps):
 def _deep_batch():
     """A batch of 4 windows, Hmax 4, 3 individuals with 64 reads each: in
     window 0 hap 3 is far from every read (its genotypes' gl_rel floored),
-    window 1 has small log-likelihoods (|gl| ~ 20, where f32 meets gl_rel's
-    atol), windows 2-3 have |gl| in the hundreds (one f32 ulp past atol).
+    window 1 has 4 reads of small log-likelihood, all of individual 0
+    (where float32's summation bound is under gl_rel's atol), windows 2-3
+    have |gl| in the hundreds (the bound far past atol).
     Returns (numpy inputs, the same batch with its reads in another order:
     another summation order of every sum)."""
     rng = np.random.default_rng(17)
@@ -209,13 +210,17 @@ def _deep_batch():
                     -300.0).astype(np.float32)
     ll[0, 3] = -30.0
     ll[1] *= np.float32(0.1)
+    ll[1, :, 4:] = 0.0
     oh = np.zeros((W, I, R), np.float32)
     oh[:, np.repeat(np.arange(I), per_ind), np.arange(R)] = 1.0
+    oh[1, :, 4:] = 0.0
+    has_reads = np.ones((W, I), bool)
+    has_reads[1, 1:] = False
     vm = np.zeros((W, 3, H), bool)
     vm[:, :, 1:] = rng.random((W, 3, H - 1)) < 0.5
     h1, h2 = genotype_index_pairs(H)
     arrays = [ll, oh, np.ones((W, H), bool), h1.astype(np.int32),
-              h2.astype(np.int32), vm, np.ones((W, I), bool)]
+              h2.astype(np.int32), vm, has_reads]
     perm = rng.permutation(R)
     permuted = list(arrays)
     permuted[0] = np.ascontiguousarray(ll[:, :, perm])
@@ -554,7 +559,7 @@ def test_kernel_counts_each_launch(cuda_device):
 @pytest.mark.parametrize("route", likelihood_cuda.ROUTES)
 def test_kernel_poisons_a_batch_whose_pairs_are_not_lexicographic(cuda_device,
                                                                   route):
-    args = _on(cuda_device, random_windows(14, 3, 6, 64, 2, 3))
+    args = _on(cuda_device, random_windows(14, 3, 4, 64, 2, 3))
     args[3], args[4] = args[4].flip(0).contiguous(), args[3].flip(0).contiguous()
     outs, iters = likelihood_cuda.launch(*args, route=route)
     for out in outs:
