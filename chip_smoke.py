@@ -108,7 +108,8 @@ the JAX package.  Phases:
    each with --meshDevices=-1 through the port's CLI in a fresh
    interpreter that reports its kernel launches: byte-identical to the
    reference's default runs, with K1 (K2) and the fused inference kernel
-   launched and the [mesh] timers printed;
+   launched and the mesh spans (mesh_pack_launch, mesh_fetch, mesh_unpack)
+   timed;
 13. mesh shards: in this process, mesh_call_region over a slice region
    and over FLANK_REGION in flank mode on a 1-shard mesh, a 2-shard mesh
    on cuda:0 and, with two cards or more, a mesh of every card: pair
@@ -1417,25 +1418,21 @@ def cli_args(info, region, out, extra=()):
 
 
 def reset_counts():
-    """Zero every kernel's launch count and the fused-inference count."""
-    from platypus_tpu_torch.ops import align_cuda
-    from platypus_tpu_torch.parallel import batch
+    """Zero the engine's spans and counters (GLOBAL_METRICS), the kernels'
+    launch counts and the fused-inference count among them."""
+    from platypus_tpu_torch.utils.observability import GLOBAL_METRICS
 
-    for name in align_cuda.LAUNCHES:
-        align_cuda.LAUNCHES[name] = 0
-    batch.BATCHES = 0
+    GLOBAL_METRICS.reset()
 
 
 def read_counts():
     """Launches per kernel library, fused-inference batches, pairs whose
     score the flank penalty lowered and device-inferred windows the f64
-    guard sent to the host, since the last reset_counts() (and
-    metrics.reset())."""
+    guard sent to the host, since the last reset_counts()."""
     from platypus_tpu_torch.engine.region import metrics
     from platypus_tpu_torch.ops import align_cuda
-    from platypus_tpu_torch.parallel import batch
 
-    return dict(align_cuda.LAUNCHES, batches=batch.BATCHES,
+    return dict(align_cuda.launches(), batches=metrics.counters["k3_batches"],
                 flank_pairs_lowered=metrics.counters["flank_pairs_lowered"],
                 device_windows_to_host=metrics.counters["device_windows_to_host"])
 
@@ -1449,7 +1446,6 @@ def run_port(argv):
     from platypus_tpu_torch import cli
     from platypus_tpu_torch.engine.region import metrics
 
-    metrics.reset()
     reset_counts()
     t0 = time.perf_counter()
     rc = cli.main(argv)
@@ -1654,13 +1650,23 @@ def check_resume(info, smi):
 
 
 # A fresh interpreter running the port's CLI on cuda, which prints its
-# kernel launch counts (counted from zero at its start) as its last line.
+# kernel launch counts and then its engine spans and counters (counted
+# from zero at its start) as its last two lines.
 COUNTED_CLI = ("import json, sys\n"
                "from platypus_tpu_torch import cli\n"
                "from platypus_tpu_torch.ops import align_cuda\n"
+               "from platypus_tpu_torch.utils.observability import GLOBAL_METRICS\n"
                "rc = cli.main(sys.argv[1:])\n"
-               "print('LAUNCHES ' + json.dumps(align_cuda.LAUNCHES), flush=True)\n"
+               "print('LAUNCHES ' + json.dumps(align_cuda.launches()), flush=True)\n"
+               "print('METRICS ' + json.dumps(GLOBAL_METRICS.snapshot()), flush=True)\n"
                "sys.exit(rc)\n")
+
+
+def counted_metrics(stdout):
+    """GLOBAL_METRICS.snapshot() of a finished COUNTED_CLI process."""
+    lines = [line for line in stdout.splitlines()
+             if line.startswith("METRICS ")]
+    return json.loads(lines[-1].split(" ", 1)[1])
 
 
 def counted_result(proc, log):
@@ -1683,7 +1689,7 @@ def check_mesh_cli(info, region, smi):
     """Phase 12: --meshDevices=-1 through the port's CLI, on the slice and
     (flank scores) on FLANK_REGION, against the reference's default runs."""
     workdir = info["workdir"]
-    env = port_env(PLATYPUS_TPU_MESH_TIMERS="1")
+    env = port_env()
     for name, reg, extra, ref_name, kernel in (
             ("mesh", region, (), "reference.vcf", "band_align"),
             ("mesh_flank", FLANK_REGION, ("--calculateFlankScore=1",),
@@ -1695,32 +1701,19 @@ def check_mesh_cli(info, region, smi):
                          cwd=REPO, env=env, timeout=900)
         wall = time.perf_counter() - t0
         launches, stdout = counted_result(proc, f"{out}.log")
-        timers = [line for line in stdout.splitlines()
-                  if line.startswith("[mesh] ")]
+        timers = {k: v for k, v in counted_metrics(stdout)["timers"].items()
+                  if k.startswith("mesh_")}
         n_lines = check_same_calls(name, os.path.join(workdir, ref_name), out)
         if (launches[kernel] <= 0 or launches["infer_window"] <= 0
-                or not any("pack+launch" in t for t in timers)):
+                or "mesh_pack_launch" not in timers):
             raise AssertionError(f"{name}: no {kernel} or infer_window launch "
-                                 f"or no [mesh] timers: {launches}, "
-                                 f"{timers[:3]}")
+                                 f"or no mesh spans: {launches}, {timers}")
         print(f"mesh: {reg} {' '.join(extra)} --meshDevices=-1 on {smi}: port "
               f"CLI {wall:.6f} s, {launches['band_align']} K1, "
               f"{launches['band_align_tb']} K2 and {launches['infer_window']} "
-              f"infer_window launches, [mesh] timers summed "
-              f"over {len(timers) // 3} regions: {mesh_timer_sums(timers)}; "
-              f"{n_lines} VCF data lines byte-identical to the reference's "
-              f"default run", flush=True)
-
-
-def mesh_timer_sums(timers):
-    """Seconds per [mesh] timer (pack+launch, device_get, unpack), summed
-    over the lines `[mesh] <name>[ N groups]: <t>s`."""
-    sums = {}
-    for line in timers:
-        label, value = line[len("[mesh] "):].rsplit(": ", 1)
-        name = label.split(" ")[0]
-        sums[name] = round(sums.get(name, 0.0) + float(value.rstrip("s")), 6)
-    return sums
+              f"infer_window launches, mesh spans summed over the run's "
+              f"regions (s): {timers}; {n_lines} VCF data lines "
+              f"byte-identical to the reference's default run", flush=True)
 
 
 def span(region):
@@ -2256,10 +2249,10 @@ def main() -> int:
     inner = port_caller._beam_search_haplotypes
 
     def counting_beam(*args, **kwargs):
-        before = align_cuda.LAUNCHES["band_align"]
+        before = align_cuda.launches()["band_align"]
         out = inner(*args, **kwargs)
         beam["calls"] += 1
-        beam["launches"] += align_cuda.LAUNCHES["band_align"] - before
+        beam["launches"] += align_cuda.launches()["band_align"] - before
         return out
 
     port_caller._beam_search_haplotypes = counting_beam

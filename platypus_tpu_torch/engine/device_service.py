@@ -154,7 +154,7 @@ def device_server_main(req_q, resp_qs, ready_evt, down_evt, device) -> None:
         # ready event, wakes, and finds the service down.
         down_evt.set()
         ready_evt.set()
-        stats["infer_window_launches"] = align_cuda.LAUNCHES["infer_window"]
+        stats["infer_window_launches"] = align_cuda.launches()["infer_window"]
         _write_stats(stats)
         logger.info("device service stopping: %s", stats)
     if stats["errors"]:

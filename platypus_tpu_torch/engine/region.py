@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -81,64 +80,66 @@ def load_region_buffers(
 ) -> Optional[List[SampleReadBuffer]]:
     """Fetch + QC reads for one region, one buffer per sample, sorted by
     sample name (platypusutils.pyx:449-687).  Returns None when the region
-    exceeds maxReads."""
-    qc = qc_options_from_config(config)
-    buffers = []
-    total_reads = 0
-    multi = any(len(s) > 1 for s in samples_by_bam.values())
-    if not multi:
-        for bam in bam_files:
-            sample = samples_by_bam[bam][0]
-            stream = bam.fetch(chrom, start, end)
-            total_reads += len(stream)
-            if total_reads >= config.max_reads:
-                logger.warning(
-                    "Too many reads (%s) in region %s:%s-%s", total_reads, chrom, start, end
-                )
-                return None
-            broken = None
-            if config.assemble_broken_pairs:
-                broken = _fetch_broken_mates(bam, stream, chrom, start, end)
-            buf = build_sample_buffer(sample, stream, qc, broken)
-            if config.compress_reads and config.qual_bin_size > 1:
-                # The lossy part of --compressReads (quality binning) is
-                # applied post-QC, matching the reference's observable
-                # behaviour (htslibWrapper.pyx:505-507; io/compression.py).
-                from ..io.compression import apply_qual_binning
+    exceeds maxReads.  Timed as `bam_decode` on whichever thread runs it:
+    the prefetch helper, or the pipeline inside `region_load`."""
+    with metrics.timer("bam_decode", region=f"{chrom}:{start}-{end}"):
+        qc = qc_options_from_config(config)
+        buffers = []
+        total_reads = 0
+        multi = any(len(s) > 1 for s in samples_by_bam.values())
+        if not multi:
+            for bam in bam_files:
+                sample = samples_by_bam[bam][0]
+                stream = bam.fetch(chrom, start, end)
+                total_reads += len(stream)
+                if total_reads >= config.max_reads:
+                    logger.warning(
+                        "Too many reads (%s) in region %s:%s-%s", total_reads, chrom, start, end
+                    )
+                    return None
+                broken = None
+                if config.assemble_broken_pairs:
+                    broken = _fetch_broken_mates(bam, stream, chrom, start, end)
+                buf = build_sample_buffer(sample, stream, qc, broken)
+                if config.compress_reads and config.qual_bin_size > 1:
+                    # The lossy part of --compressReads (quality binning) is
+                    # applied post-QC, matching the reference's observable
+                    # behaviour (htslibWrapper.pyx:505-507; io/compression.py).
+                    from ..io.compression import apply_qual_binning
 
-                for rs in (buf.good, buf.bad, buf.broken):
-                    apply_qual_binning(rs, config.qual_bin_size)
-            buffers.append(buf)
-    else:
-        # Multi-sample BAMs: split the stream by RG tag.
-        streams: Dict[str, list] = {}
-        sample_by_rg: Dict[bytes, str] = {}
-        for bam in bam_files:
-            for rg in bam.header_dict().get("RG", []):
-                if "ID" in rg and "SM" in rg:
-                    sample_by_rg[rg["ID"].encode()] = rg["SM"]
-        all_samples = sorted({s for ss in samples_by_bam.values() for s in ss})
-        per_sample_subsets: Dict[str, list] = {s: [] for s in all_samples}
-        for bam in bam_files:
-            rs = bam.fetch(chrom, start, end, store_rg=True)
-            total_reads += len(rs)
-            if total_reads >= config.max_reads:
-                return None
-            samples_arr = np.array([
-                sample_by_rg.get(rs.rg_id[i] if rs.rg_id else None, all_samples[0])
-                for i in range(len(rs))
-            ]) if len(rs) else np.zeros(0, dtype=object)
+                    for rs in (buf.good, buf.bad, buf.broken):
+                        apply_qual_binning(rs, config.qual_bin_size)
+                buffers.append(buf)
+        else:
+            # Multi-sample BAMs: split the stream by RG tag.
+            streams: Dict[str, list] = {}
+            sample_by_rg: Dict[bytes, str] = {}
+            for bam in bam_files:
+                for rg in bam.header_dict().get("RG", []):
+                    if "ID" in rg and "SM" in rg:
+                        sample_by_rg[rg["ID"].encode()] = rg["SM"]
+            all_samples = sorted({s for ss in samples_by_bam.values() for s in ss})
+            per_sample_subsets: Dict[str, list] = {s: [] for s in all_samples}
+            for bam in bam_files:
+                rs = bam.fetch(chrom, start, end, store_rg=True)
+                total_reads += len(rs)
+                if total_reads >= config.max_reads:
+                    return None
+                samples_arr = np.array([
+                    sample_by_rg.get(rs.rg_id[i] if rs.rg_id else None, all_samples[0])
+                    for i in range(len(rs))
+                ]) if len(rs) else np.zeros(0, dtype=object)
+                for sample in all_samples:
+                    idx = np.nonzero(samples_arr == sample)[0]
+                    if len(idx):
+                        per_sample_subsets[sample].append(rs.take(idx))
+            from ..io.bam import empty_read_set
+
             for sample in all_samples:
-                idx = np.nonzero(samples_arr == sample)[0]
-                if len(idx):
-                    per_sample_subsets[sample].append(rs.take(idx))
-        from ..io.bam import empty_read_set
-
-        for sample in all_samples:
-            stream = _concat_read_sets(per_sample_subsets[sample])
-            buffers.append(build_sample_buffer(sample, stream, qc))
-    buffers.sort(key=lambda b: b.sample)
-    return buffers
+                stream = _concat_read_sets(per_sample_subsets[sample])
+                buffers.append(build_sample_buffer(sample, stream, qc))
+        buffers.sort(key=lambda b: b.sample)
+        return buffers
 
 
 def _fetch_broken_mates(bam: BamFile, stream, chrom: str, start: int, end: int):
@@ -293,7 +294,7 @@ class PreparedRegion:
     """Host-side state of a region whose device alignments are in flight."""
 
     __slots__ = ("chrom", "start", "end", "buffers", "windows", "prepared",
-                 "live", "pending", "region_t0", "loglik_by_idx",
+                 "live", "pending", "loglik_by_idx",
                  "pending_inference", "inference_by_idx", "mesh_fetch")
 
     def __init__(self, **kw):
@@ -303,6 +304,13 @@ class PreparedRegion:
         self.mesh_fetch = None           # deferred mesh fetch (closure, extra)
         for k, v in kw.items():
             setattr(self, k, v)
+
+    def release(self) -> None:
+        """Drop everything but the region's coordinates, so that its reads,
+        windows and results are freed now and not wherever the last
+        reference to the state happens to go."""
+        for name in self.__slots__[3:]:
+            setattr(self, name, None)
 
 
 def call_variants_in_region(
@@ -383,111 +391,119 @@ def prepare_region_call(
     The prepare(k+1) / finish(k) split lets the runner overlap region k's
     in-flight device pass and result transfer with region k+1's host work
     (SURVEY section 2.5)."""
-    rlen0 = rt.rlen
-    region_t0 = time.perf_counter()
-    ref_file.set_cache_sequence(chrom, start - 10 * rt.rlen, end + 10 * rt.rlen)
-    contig_len = ref_file.refs[chrom].length
-    max_contig_pos = contig_len - 1
+    with metrics.timer("region_prepare", region=f"{chrom}:{start}-{end}"):
+        rlen0 = rt.rlen
+        _cache_reference(ref_file, chrom, start - 10 * rt.rlen,
+                         end + 10 * rt.rlen)
+        contig_len = ref_file.refs[chrom].length
+        max_contig_pos = contig_len - 1
 
-    try:
-        with metrics.timer("region_load"):
-            if preloaded is not None and preloaded.matches(chrom, start, end):
-                buffers = preloaded.result()
-            else:
-                buffers = load_region_buffers(bam_files, samples_by_bam, chrom,
-                                              start, end, config)
-    except Exception as exc:  # noqa: BLE001 — region-level crash containment
-        logger.exception("Exception loading region %s:%s-%s: %s", chrom, start, end, exc)
-        return None
-    if buffers is None:
-        logger.info("Skipping region %s:%s-%s (data could not be loaded)", chrom, start, end)
-        return None
-
-    for buf in buffers:
-        metrics.count("reads", len(buf.good) + len(buf.bad))
-        if config.verbosity >= 3:
-            logger.info("sample %s: %d good, %d bad, %d broken; filters %s",
-                        buf.sample, len(buf.good), len(buf.bad), len(buf.broken),
-                        buf.filter_counts)
-    with metrics.timer("candidate_generation"):
-        variants = generate_variants_in_region(chrom, start, end, ref_file, buffers, config, rt)
-    # Re-cache with the updated read length.
-    if rt.rlen != rlen0:
-        ref_file.set_cache_sequence(chrom, start - 10 * rt.rlen, end + 10 * rt.rlen)
-
-    if config.compress_reads:
-        # Memory mode of --compressReads (region.py:395-413).
-        comp_start = max(0, start - 10 * rt.rlen)
-        comp_end = min(contig_len, end + 10 * rt.rlen)
-        ref_bytes = ref_file.get_sequence(chrom, comp_start, comp_end)
-        for buf in buffers:
-            for rs in (buf.good, buf.bad):
-                if len(rs) and rs.seq is not None and rs.seq.size:
-                    rs.compress_in_memory(ref_bytes, comp_start)
-
-    windows = list(generate_windows(
-        chrom, start, end, max_contig_pos, variants,
-        rlen=rt.rlen, max_size=config.max_size,
-        large_windows=bool(config.large_windows),
-        max_var_dist=config.max_var_dist, min_var_dist=config.min_var_dist,
-        max_variants=config.max_variants,
-        merge_clustered=bool(config.merge_clustered_variants),
-        output_ref_calls=bool(config.output_ref_calls),
-        ref_call_block_size=config.ref_call_block_size,
-    ))
-
-    # Phase 1 (host): haplotype enumeration + pair construction per window.
-    win_bounds = [(w.start_pos, w.end_pos) for w in windows
-                  if w.variants and w.end_pos - w.start_pos <= config.max_size]
-    region_reads = (RegionReadMatrix.build(buffers)
-                    if win_bounds and not config.compress_reads else None)
-    for buf in buffers:
-        buf.precompute_window_slices(win_bounds)
-    prepared = {}
-    prep_t0 = time.perf_counter()
-    for w_idx, window in enumerate(windows):
-        if not window.variants:
-            continue
-        if window.end_pos - window.start_pos > config.max_size:
-            logger.info(
-                "Skipping very large window %s:%s-%s", chrom, window.start_pos, window.end_pos
-            )
-            prepared[w_idx] = "skip"
-            continue
         try:
-            prepared[w_idx] = prepare_window(window, buffers, ref_file, config, rt,
-                                             device, region_reads=region_reads,
-                                             defer_pairs=True)
-        except DeviceError:
-            raise  # the beam search's device work is not contained
-        except Exception:  # noqa: BLE001 — window crash containment
-            logger.exception(
-                "Exception preparing window %s:%s-%s", chrom, window.start_pos, window.end_pos
-            )
-            prepared[w_idx] = "skip"
+            with metrics.timer("region_load"):
+                if preloaded is not None and preloaded.matches(chrom, start,
+                                                               end):
+                    buffers = preloaded.result()
+                else:
+                    buffers = load_region_buffers(bam_files, samples_by_bam,
+                                                  chrom, start, end, config)
+        except Exception as exc:  # noqa: BLE001 — region-level crash containment
+            logger.exception("Exception loading region %s:%s-%s: %s", chrom,
+                             start, end, exc)
+            return None
+        if buffers is None:
+            logger.info("Skipping region %s:%s-%s (data could not be loaded)",
+                        chrom, start, end)
+            return None
 
-    metrics.add("window_prepare", time.perf_counter() - prep_t0)
+        for buf in buffers:
+            metrics.count("reads", len(buf.good) + len(buf.bad))
+            if config.verbosity >= 3:
+                logger.info("sample %s: %d good, %d bad, %d broken; filters %s",
+                            buf.sample, len(buf.good), len(buf.bad),
+                            len(buf.broken), buf.filter_counts)
+        with metrics.timer("candidate_generation"):
+            variants = generate_variants_in_region(chrom, start, end, ref_file,
+                                                   buffers, config, rt)
+        # Re-cache with the updated read length.
+        if rt.rlen != rlen0:
+            _cache_reference(ref_file, chrom, start - 10 * rt.rlen,
+                             end + 10 * rt.rlen)
 
-    # Phase 2 (device): dispatch every window's alignments in a few big
-    # batched calls; results are awaited in begin_region_inference.
-    live = [(w_idx, p) for w_idx, p in prepared.items() if p not in (None, "skip")]
-    prep_t1 = time.perf_counter()
-    fill_deferred_pairs([p.request for _, p in live])
-    metrics.add("window_prepare", time.perf_counter() - prep_t1)
-    metrics.count("windows", len(windows))
-    metrics.count("alignment_pairs",
-                  sum(p.request.n_pairs() for _, p in live if p.request is not None))
-    if config.mesh_devices:
-        pending = None
-    else:
-        with metrics.timer("device_dispatch"), device_stage(
-                device, f"alignment dispatch of {chrom}:{start}-{end}"):
-            pending = dispatch_alignment_requests([p.request for _, p in live],
-                                                  device)
+        with metrics.timer("window_layout"):
+            if config.compress_reads:
+                # Memory mode of --compressReads (region.py:395-413).
+                comp_start = max(0, start - 10 * rt.rlen)
+                comp_end = min(contig_len, end + 10 * rt.rlen)
+                ref_bytes = ref_file.get_sequence(chrom, comp_start, comp_end)
+                for buf in buffers:
+                    for rs in (buf.good, buf.bad):
+                        if len(rs) and rs.seq is not None and rs.seq.size:
+                            rs.compress_in_memory(ref_bytes, comp_start)
 
-    return PreparedRegion(chrom=chrom, start=start, end=end, buffers=buffers,
-                          windows=windows, prepared=prepared, live=live,
-                          pending=pending, region_t0=region_t0)
+            windows = list(generate_windows(
+                chrom, start, end, max_contig_pos, variants,
+                rlen=rt.rlen, max_size=config.max_size,
+                large_windows=bool(config.large_windows),
+                max_var_dist=config.max_var_dist,
+                min_var_dist=config.min_var_dist,
+                max_variants=config.max_variants,
+                merge_clustered=bool(config.merge_clustered_variants),
+                output_ref_calls=bool(config.output_ref_calls),
+                ref_call_block_size=config.ref_call_block_size,
+            ))
+
+            # Phase 1 (host): haplotype enumeration + pair construction per
+            # window.
+            win_bounds = [(w.start_pos, w.end_pos) for w in windows
+                          if w.variants
+                          and w.end_pos - w.start_pos <= config.max_size]
+            region_reads = (RegionReadMatrix.build(buffers)
+                            if win_bounds and not config.compress_reads
+                            else None)
+            for buf in buffers:
+                buf.precompute_window_slices(win_bounds)
+        prepared = {}
+        with metrics.timer("window_prepare"), metrics.timer("haplotypes"):
+            for w_idx, window in enumerate(windows):
+                if not window.variants:
+                    continue
+                if window.end_pos - window.start_pos > config.max_size:
+                    logger.info("Skipping very large window %s:%s-%s", chrom,
+                                window.start_pos, window.end_pos)
+                    prepared[w_idx] = "skip"
+                    continue
+                try:
+                    prepared[w_idx] = prepare_window(
+                        window, buffers, ref_file, config, rt, device,
+                        region_reads=region_reads, defer_pairs=True)
+                except DeviceError:
+                    raise  # the beam search's device work is not contained
+                except Exception:  # noqa: BLE001 — window crash containment
+                    logger.exception("Exception preparing window %s:%s-%s",
+                                     chrom, window.start_pos, window.end_pos)
+                    prepared[w_idx] = "skip"
+
+        # Phase 2 (device): dispatch every window's alignments in a few big
+        # batched calls; results are awaited in begin_region_inference.
+        live = [(w_idx, p) for w_idx, p in prepared.items()
+                if p not in (None, "skip")]
+        with metrics.timer("window_prepare"), metrics.timer("pair_fill"):
+            fill_deferred_pairs([p.request for _, p in live])
+        metrics.count("windows", len(windows))
+        metrics.count("alignment_pairs",
+                      sum(p.request.n_pairs() for _, p in live
+                          if p.request is not None))
+        if config.mesh_devices:
+            pending = None
+        else:
+            with metrics.timer("device_dispatch"), device_stage(
+                    device, f"alignment dispatch of {chrom}:{start}-{end}"):
+                pending = dispatch_alignment_requests(
+                    [p.request for _, p in live], device)
+
+        return PreparedRegion(chrom=chrom, start=start, end=end,
+                              buffers=buffers, windows=windows,
+                              prepared=prepared, live=live, pending=pending)
 
 
 def device_inference_enabled(config: PlatypusConfig, device) -> bool:
@@ -512,47 +528,48 @@ def begin_region_inference(state, config: PlatypusConfig, device) -> None:
     if state.loglik_by_idx is not None or state.mesh_fetch is not None:
         return
     where = f"{state.chrom}:{state.start}-{state.end}"
-    if state.pending is None:
-        from ..parallel.mesh import get_engine_mesh, mesh_call_region
+    with metrics.timer("region_begin", region=where):
+        if state.pending is None:
+            from ..parallel.mesh import get_engine_mesh, mesh_call_region
 
+            with metrics.timer("device_alignment"), device_stage(
+                    device, f"mesh region step of {where}"):
+                mesh = get_engine_mesh(config.mesh_devices, device)
+                fetch_fn, leftover = mesh_call_region(
+                    state.live, len(state.buffers), mesh, defer=True)
+            extra = {}
+            if leftover:
+                with metrics.timer("device_alignment"):
+                    lls = run_alignment_requests([p.request for _, p in leftover],
+                                                 device)
+                extra = {w_idx: ll for (w_idx, _p), ll in zip(leftover, lls)}
+            state.mesh_fetch = (fetch_fn, extra)
+            return
         with metrics.timer("device_alignment"), device_stage(
-                device, f"mesh region step of {where}"):
-            mesh = get_engine_mesh(config.mesh_devices, device)
-            fetch_fn, leftover = mesh_call_region(
-                state.live, len(state.buffers), mesh, defer=True)
-        extra = {}
-        if leftover:
-            with metrics.timer("device_alignment"):
-                lls = run_alignment_requests([p.request for _, p in leftover],
-                                             device)
-            extra = {w_idx: ll for (w_idx, _p), ll in zip(leftover, lls)}
-        state.mesh_fetch = (fetch_fn, extra)
-        return
-    with metrics.timer("device_alignment"), device_stage(
-            device, f"alignment of {where}"):
-        logliks = state.pending.finalize()
-    state.loglik_by_idx = {w_idx: ll
-                           for (w_idx, _p), ll in zip(state.live, logliks)}
-    state.inference_by_idx = {}
-    if device_inference_enabled(config, device):
-        with metrics.timer("device_inference"), device_stage(
-                device, f"inference dispatch of {where}"):
-            state.pending_inference = dispatch_device_inference(
-                state.live, state.loglik_by_idx, len(state.buffers), device)
-    elif device is None and config.device_inference != 0:
-        # A host worker of a pool that runs the device-owner service:
-        # non-blocking submit here; the response hides behind the next
-        # region's host work.
-        client = get_inference_client()
-        if client is not None and client.available():
-            try:
-                with metrics.timer("device_inference"):
-                    state.pending_inference = dispatch_service_inference(
-                        state.live, state.loglik_by_idx, len(state.buffers),
-                        client)
-            except Exception:  # noqa: BLE001 — fall back to the host path
-                logger.exception("service inference failed; using host path")
-                state.pending_inference = None
+                device, f"alignment of {where}"):
+            logliks = state.pending.finalize()
+        state.loglik_by_idx = {w_idx: ll
+                               for (w_idx, _p), ll in zip(state.live, logliks)}
+        state.inference_by_idx = {}
+        if device_inference_enabled(config, device):
+            with metrics.timer("device_inference"), device_stage(
+                    device, f"inference dispatch of {where}"):
+                state.pending_inference = dispatch_device_inference(
+                    state.live, state.loglik_by_idx, len(state.buffers), device)
+        elif device is None and config.device_inference != 0:
+            # A host worker of a pool that runs the device-owner service:
+            # non-blocking submit here; the response hides behind the next
+            # region's host work.
+            client = get_inference_client()
+            if client is not None and client.available():
+                try:
+                    with metrics.timer("device_inference"):
+                        state.pending_inference = dispatch_service_inference(
+                            state.live, state.loglik_by_idx, len(state.buffers),
+                            client)
+                except Exception:  # noqa: BLE001 — fall back to the host path
+                    logger.exception("service inference failed; using host path")
+                    state.pending_inference = None
 
 
 def _gather_inference(state, device) -> dict:
@@ -576,10 +593,25 @@ def _gather_inference(state, device) -> dict:
 def finish_region_call(state, ref_file, config: PlatypusConfig, writer,
                        device) -> int:
     """Await the region's device results, then run per-window inference +
-    output (in window order).  Returns the number of VCF lines written."""
+    output (in window order).  Returns the number of VCF lines written.
+    The state keeps only its coordinates afterwards: freeing the region's
+    objects is timed as region_release."""
+    chrom, start, end = state.chrom, state.start, state.end
+    with metrics.timer("region_finish", region=f"{chrom}:{start}-{end}"):
+        n_written = _finish_region(state, ref_file, config, writer, device)
+        with metrics.timer("region_release"):
+            state.release()
+    if config.verbosity >= 3 or os.environ.get("PLATYPUS_TPU_METRICS"):
+        metrics.log_summary(f"region {chrom}:{start}-{end} cumulative: ")
+    return n_written
+
+
+def _finish_region(state, ref_file, config: PlatypusConfig, writer,
+                   device) -> int:
+    """finish_region_call's body, inside its `region_finish` span."""
     chrom, start, end = state.chrom, state.start, state.end
     buffers, windows, prepared = state.buffers, state.windows, state.prepared
-    ref_file.set_cache_sequence(chrom, start - 2000, end + 2000)
+    _cache_reference(ref_file, chrom, start - 2000, end + 2000)
 
     begin_region_inference(state, config, device)
     if state.mesh_fetch is not None:
@@ -598,7 +630,7 @@ def finish_region_call(state, ref_file, config: PlatypusConfig, writer,
     # The GL/GOF/rescale block of every window computes in one batched
     # pre-pass (bit-identical to the per-window path).
     try:
-        with metrics.timer("window_finish"):
+        with metrics.timer("window_finish"), metrics.timer("gl_prepass"):
             # EM precompute only when the region will take the host EM
             # path; device-inference regions would waste the work (their
             # rare f64-guard-tripped windows recompute per window).
@@ -615,7 +647,8 @@ def finish_region_call(state, ref_file, config: PlatypusConfig, writer,
     n_written = 0
     # REFCALL NR replicates the reference's stale window pointers: the
     # count of each buffer's most recently PROCESSED variant window
-    # (variantcaller.pyx:856-866; verified against the running reference).
+    # (variantcaller.pyx:856-866; verified against the running reference),
+    # which only REFCALL lines read.
     last_window_nr = [0] * len(buffers)
     for w_idx, window in enumerate(windows):
         try:
@@ -625,63 +658,77 @@ def finish_region_call(state, ref_file, config: PlatypusConfig, writer,
             result = None
             if window.variants:
                 if prep is not None:
-                    for _i, _buf in enumerate(buffers):
-                        _sl = _buf.window_slice(window.start_pos,
-                                                window.end_pos)
-                        last_window_nr[_i] = _sl.stop - _sl.start
-                    with metrics.timer("window_finish"):
-                        result = finish_window(prep, loglik_by_idx[w_idx], ref_file,
-                                               config,
-                                               inference=inference_by_idx.get(w_idx),
-                                               precomputed=gl_pre.get(w_idx))
+                    if config.output_ref_calls:
+                        with metrics.timer("ref_calls"):
+                            for _i, _buf in enumerate(buffers):
+                                _sl = _buf.window_slice(window.start_pos,
+                                                        window.end_pos)
+                                last_window_nr[_i] = _sl.stop - _sl.start
+                    with metrics.timer("window_finish"), \
+                            metrics.timer("window_call"):
+                        result = finish_window(
+                            prep, loglik_by_idx[w_idx], ref_file, config,
+                            inference=inference_by_idx.get(w_idx),
+                            precomputed=gl_pre.get(w_idx))
                 if result is not None and result.variant_posteriors:
                     with metrics.timer("vcf_output"):
                         n_written += output_call_to_vcf(result, buffers, ref_file, config, writer)
                     if config.output_ref_calls and len(result.vars_by_pos) > 1:
-                        # REFCALL blocks between called positions inside the
-                        # window (variantcaller.pyx:585-607).
-                        # The reference pairs ADJACENT ITERATION entries of
-                        # varsByPos.iteritems() (variantcaller.pyx:589-602)
-                        # — insertion order under the running py3-harness
-                        # reference (haplotype-major variant enumeration),
-                        # NOT positional order.  Real-read S55 runs hit the
-                        # difference: blocks span across a middle position
-                        # whose key was inserted later.
-                        positions = list(result.vars_by_pos.keys())
-                        for last_pos, next_pos in zip(positions, positions[1:]):
-                            last_var_end = max(
-                                v.max_ref_pos for v in result.vars_by_pos[last_pos]
-                            )
-                            next_var_start = min(
-                                v.min_ref_pos for v in result.vars_by_pos[next_pos]
-                            ) + 1
-                            if next_var_start - last_var_end <= 1:
-                                continue
-                            for bs in range(last_var_end + 1, next_var_start,
-                                            config.ref_call_block_size):
-                                be = min(bs + config.ref_call_block_size, next_var_start - 1)
-                                if bs == be:
-                                    continue
-                                output_ref_call(
-                                    Window(chrom, bs, be, []), buffers, ref_file,
-                                    config, writer,
-                                    last_window_nr=last_window_nr,
-                                )
-                                n_written += 1
+                        with metrics.timer("ref_calls"):
+                            n_written += _ref_calls_between_sites(
+                                result, chrom, buffers, ref_file, config,
+                                writer, last_window_nr)
                 elif config.output_ref_calls:
-                    output_ref_call(window, buffers, ref_file, config, writer,
-                                    call=result, last_window_nr=last_window_nr)
+                    with metrics.timer("ref_calls"):
+                        output_ref_call(window, buffers, ref_file, config,
+                                        writer, call=result,
+                                        last_window_nr=last_window_nr)
                     n_written += 1
             elif config.output_ref_calls:
-                output_ref_call(window, buffers, ref_file, config, writer,
-                                last_window_nr=last_window_nr)
+                with metrics.timer("ref_calls"):
+                    output_ref_call(window, buffers, ref_file, config, writer,
+                                    last_window_nr=last_window_nr)
                 n_written += 1
         except Exception as exc:  # noqa: BLE001 — window-level crash containment
             logger.exception(
                 "Exception in window %s:%s-%s: %s", chrom, window.start_pos, window.end_pos, exc
             )
-    writer.drain()  # flush the 100-line look-ahead before region handoff
-    metrics.add("region_total", time.perf_counter() - state.region_t0)
-    if config.verbosity >= 3 or os.environ.get("PLATYPUS_TPU_METRICS"):
-        metrics.log_summary(f"region {chrom}:{start}-{end} cumulative: ")
+    with metrics.timer("vcf_drain"):
+        writer.drain()  # flush the 100-line look-ahead before region handoff
     return n_written
+
+
+def _ref_calls_between_sites(result, chrom, buffers, ref_file, config, writer,
+                             last_window_nr) -> int:
+    """REFCALL blocks between called positions inside a window
+    (variantcaller.pyx:585-607); returns the lines written.
+
+    The reference pairs ADJACENT ITERATION entries of
+    varsByPos.iteritems() (variantcaller.pyx:589-602) — insertion order
+    under the running py3-harness reference (haplotype-major variant
+    enumeration), NOT positional order.  Real-read S55 runs hit the
+    difference: blocks span across a middle position whose key was
+    inserted later."""
+    n_written = 0
+    positions = list(result.vars_by_pos.keys())
+    for last_pos, next_pos in zip(positions, positions[1:]):
+        last_var_end = max(v.max_ref_pos for v in result.vars_by_pos[last_pos])
+        next_var_start = min(
+            v.min_ref_pos for v in result.vars_by_pos[next_pos]) + 1
+        if next_var_start - last_var_end <= 1:
+            continue
+        for bs in range(last_var_end + 1, next_var_start,
+                        config.ref_call_block_size):
+            be = min(bs + config.ref_call_block_size, next_var_start - 1)
+            if bs == be:
+                continue
+            output_ref_call(Window(chrom, bs, be, []), buffers, ref_file,
+                            config, writer, last_window_nr=last_window_nr)
+            n_written += 1
+    return n_written
+
+
+def _cache_reference(ref_file, chrom: str, lo: int, hi: int) -> None:
+    """The reference's region cache, inside a `ref_cache` span."""
+    with metrics.timer("ref_cache"):
+        ref_file.set_cache_sequence(chrom, lo, hi)

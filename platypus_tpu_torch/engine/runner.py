@@ -63,6 +63,7 @@ from ..io.bam import BamFile, open_alignment_file
 from ..io.fasta import FastaFile
 from ..utils.backend import DeviceError
 from ..utils.fileio import expand_bam_file_names, open_transparent
+from ..utils.observability import GLOBAL_METRICS as metrics, RUN, trace
 from ..vcfout.writer import VCFWriter
 from .device_service import (DeviceService, set_service_handle,
                              should_start_service)
@@ -197,17 +198,30 @@ def run_single_process(
     submitted, so writes stay in region order.  The stage's finish reads
     its own FastaFile, so it does not evict the region cache that
     prepare slices from.  A DeviceError raised on the thread leaves
-    through the stage's result here and stops the run."""
-    bam_files, samples_by_bam, samples = open_bams(config)
-    ref_file = FastaFile(config.ref_file, parse_ncbi=bool(config.parse_ncbi))
-    rt = derive_runtime(config, n_individuals=len(samples))
-    rt.rlen = config.rlen
+    through the stage's result here and stops the run.
 
-    out = sys.stdout if output_path == "-" else open(
-        output_path, "a" if append else "w")
-    writer = VCFWriter(out, samples, options_line=config.to_json())
-    if not append:
-        writer.write_header()
+    The call is the `run` span, which marks this thread as the pipeline
+    thread of utils/observability.Metrics."""
+    with metrics.timer(RUN):
+        return _run_regions(config, regions, output_path, device, append,
+                            on_region_done)
+
+
+def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
+                 append: bool, on_region_done) -> int:
+    """run_single_process's body, inside its `run` span."""
+    with metrics.timer("run_setup"):
+        bam_files, samples_by_bam, samples = open_bams(config)
+        ref_file = FastaFile(config.ref_file,
+                             parse_ncbi=bool(config.parse_ncbi))
+        rt = derive_runtime(config, n_individuals=len(samples))
+        rt.rlen = config.rlen
+
+        out = sys.stdout if output_path == "-" else open(
+            output_path, "a" if append else "w")
+        writer = VCFWriter(out, samples, options_line=config.to_json())
+        if not append:
+            writer.write_header()
 
     executor = None
     finish_ref = ref_file
@@ -224,7 +238,8 @@ def run_single_process(
     def done(region) -> None:
         if on_region_done is not None:
             with done_lock:
-                out.flush()  # the region's lines are durable first
+                with metrics.timer("vcf_flush"):
+                    out.flush()  # the region's lines are durable first
                 on_region_done(tuple(region))
 
     def begin(state) -> bool:
@@ -310,8 +325,11 @@ def run_single_process(
                 prefetch = None
             nxt = next(region_iter, None)
             if nxt is not None:
-                prefetch = RegionPrefetch(bam_files, samples_by_bam, *nxt,
-                                          config)
+                # Starting the thread hands it the interpreter lock, which
+                # this thread may wait for: timed as prefetch_start.
+                with metrics.timer("prefetch_start"):
+                    prefetch = RegionPrefetch(bam_files, samples_by_bam,
+                                              *nxt, config)
             staged = submit(aligning, staged_result())
             aligning = state
             cur = nxt
@@ -322,18 +340,19 @@ def run_single_process(
         if aligning is not None and begin(aligning):
             n_written += finish(aligning)
     finally:
-        if prefetch is not None:
-            prefetch.join()
-        if executor is not None:
-            # A stage still running (this thread raised) ends before the
-            # output closes; none waiting starts.
-            executor.shutdown(wait=True, cancel_futures=True)
-            finish_ref.close()
-        if output_path != "-":
-            out.close()
-        for bam in bam_files:
-            bam.close()
-        ref_file.close()
+        with metrics.timer("run_close"):
+            if prefetch is not None:
+                prefetch.join()
+            if executor is not None:
+                # A stage still running (this thread raised) ends before
+                # the output closes; none waiting starts.
+                executor.shutdown(wait=True, cancel_futures=True)
+                finish_ref.close()
+            if output_path != "-":
+                out.close()
+            for bam in bam_files:
+                bam.close()
+            ref_file.close()
     return n_written
 
 
@@ -603,7 +622,8 @@ def _crash_after_first_claim(regions):
 def _device_counts() -> Tuple[str, ...]:
     """What the device worker reports back through its shared counter
     array: regions it finished (written or skipped), launches per kernel
-    library and fused-inference batches, all counted in its own process."""
+    library and fused-inference batches, all counted in its own process
+    (its GLOBAL_METRICS counters launches.<library> and k3_batches)."""
     from ..ops import align_cuda
 
     return ("regions", *align_cuda.KERNELS, "batches")
@@ -618,7 +638,6 @@ def _device_worker_entry(config_json: str, source: RegionClaimSource,
     import torch
 
     from ..ops import align_cuda
-    from ..parallel import batch
 
     # The parent may terminate this worker before it opens its output;
     # the merge must find the file all the same.
@@ -652,8 +671,8 @@ def _device_worker_entry(config_json: str, source: RegionClaimSource,
     def on_done(region) -> None:
         nonlocal n_done
         n_done += 1
-        values = dict(align_cuda.LAUNCHES, regions=n_done,
-                      batches=batch.BATCHES)
+        values = dict(align_cuda.launches(), regions=n_done,
+                      batches=metrics.counters["k3_batches"])
         for k, name in enumerate(names):
             counts[k] = values[name]
         source.mark_done(region)
@@ -781,8 +800,9 @@ def run_variant_caller(config: PlatypusConfig, device,
                        continuing: bool = False) -> Optional[dict]:
     """`callVariants` on `device`: with --distributed, this process's
     share of a multi-host run (parallel/distributed.run_distributed);
-    else one process for n_cpu <= 1 (appending when `continuing`), or
-    run_pool, whose summary it returns."""
+    else one process for n_cpu <= 1 (appending when `continuing`; under
+    observability.trace("callVariants") when PLATYPUS_TPU_TRACE_DIR is
+    set), or run_pool, whose summary it returns."""
     setup_logging(config, continuing)
     if config.distributed:
         from ..parallel.distributed import run_distributed, shutdown
@@ -794,8 +814,9 @@ def run_variant_caller(config: PlatypusConfig, device,
         regions = get_regions(config)
     regions = sorted(regions, key=lambda r: (_chrom_sort_key(r[0]), r[1], r[2]))
     if config.n_cpu <= 1:
-        run_single_process(config, regions, config.output, device,
-                           append=continuing)
+        with trace("callVariants"):
+            run_single_process(config, regions, config.output, device,
+                               append=continuing)
         return None
     return run_pool(config, regions, device)
 

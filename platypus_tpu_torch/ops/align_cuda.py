@@ -37,6 +37,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from ..utils.observability import GLOBAL_METRICS
 from .align_torch import (band_align_padded_reference,
                           band_align_pairs_reference,
                           band_align_traceback_pairs_reference)
@@ -67,11 +68,17 @@ KERNELS: Dict[str, Kernel] = {
                            "program, not a Pallas kernel)"),
 }
 
-# Launches per kernel library since the last reset (chip_smoke.py reads
-# and resets them); a wrapper counts where it launches, and nowhere else.
-LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# GLOBAL_METRICS counts each library's launches under this prefix.
+LAUNCH_COUNTER = "launches."
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def launches() -> Dict[str, int]:
+    """Launches per kernel library since GLOBAL_METRICS' last reset: its
+    counters launches.<library>, which _launch counts, and nothing else."""
+    counters = GLOBAL_METRICS.counters
+    return {name: counters.get(LAUNCH_COUNTER + name, 0) for name in KERNELS}
 
 
 def source(name: str) -> str:
@@ -173,7 +180,7 @@ def _launch(dev: torch.device, name: str, fn, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    GLOBAL_METRICS.count(LAUNCH_COUNTER + name)
 
 
 def band_align_padded(hap_cols: torch.Tensor, go4_cols: torch.Tensor,

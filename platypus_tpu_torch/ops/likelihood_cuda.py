@@ -122,8 +122,9 @@ def _check_inputs(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask,
 
 def launch(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask, has_reads,
            em_iters: int = 100, route: str | None = None):
-    """The kernel on CUDA tensors: (the seven outputs of
-    infer_window_batch, EM iterations each window ran [W] int32).
+    """The kernel on CUDA tensors: (outputs, EM iterations each window ran
+    [W] int32), the outputs being infer_window_batch's seven followed by
+    those iterations, so that every caller of either entry finds them.
     `route` (one of ROUTES, em_path's choice by default) picks the
     kernel's route; a route whose tables do not fit raises.  Raises when
     the library does not build or the launch is refused."""
@@ -144,7 +145,7 @@ def launch(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask, has_reads,
     lik, em, gof, gl_rel = (empty(W, I, G) for _ in range(4))
     freq, ratios, margin = empty(W, H), empty(W, V), empty(W)
     iters = empty(W, dtype=torch.int32)
-    outs = (lik, em, freq, gof, ratios, gl_rel, margin)
+    outs = (lik, em, freq, gof, ratios, gl_rel, margin, iters)
     if W == 0:
         return outs, iters
     workspace = (empty(W * em_table_bytes(H, I) // 4) if route == "global"
@@ -152,7 +153,7 @@ def launch(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask, has_reads,
     align_cuda._launch(
         dev, "infer_window", lib.ptt_infer_window_batch,
         *(t.data_ptr() for t in (loglik, sample_onehot, hap_mask, h1, h2,
-                                 var_hap_mask, has_reads, *outs, iters)),
+                                 var_hap_mask, has_reads, *outs)),
         None if workspace is None else workspace.data_ptr(), W, H, R, I, V,
         int(em_iters), tol, ROUTES.index(route))
     return outs, iters
@@ -161,7 +162,8 @@ def launch(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask, has_reads,
 def infer_window_batch(loglik, sample_onehot, hap_mask, h1, h2, var_hap_mask,
                        has_reads, em_iters: int = 100):
     """likelihood_torch.infer_window_batch's signature and outputs (lik,
-    em, freq, gof, ratios, gl_rel, em_margin).  On the card: loglik and
+    em, freq, gof, ratios, gl_rel, em_margin), and on the card an eighth:
+    the EM iterations each window ran (launch).  On the card: loglik and
     sample_onehot float32, the masks bool, h1/h2 int32
     genotype_index_pairs(Hmax), all contiguous on one device."""
     dev = loglik.device

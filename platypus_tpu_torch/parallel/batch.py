@@ -26,10 +26,8 @@ import numpy as np
 from ..candidates.variant import Variant
 from ..ops.likelihood import genotype_index_pairs
 from ..utils.backend import fetch
+from ..utils.observability import GLOBAL_METRICS as metrics
 
-# Fused-inference batches launched since the last reset (chip_smoke.py
-# reads and resets it to show the main path ran inference on the card).
-BATCHES = 0
 
 def geom_bucket(n: int, base: int = 2) -> int:
     """Smallest base*{1,1.5}*2^k >= n (bounds compiled shapes, <=33% pad)."""
@@ -77,20 +75,27 @@ class WindowInference:
 class PendingInference:
     """In-flight fused inference for a region's windows: torch queues the
     work on the device's stream, and gather() copies the consumed outputs
-    (EM tables, frequencies, ratios, margins) to the host in one
-    transfer."""
+    (EM tables, frequencies, ratios, margins, and the EM iterations each
+    window ran where the result carries them: the kernel's eighth output)
+    to the host in one transfer.  It counts the batches' real windows as
+    k3_windows and their iterations as k3_em_iterations; the plain torch
+    version returns no iterations, so its windows are counted alone."""
 
     def __init__(self):
         self.buckets: list = []  # (items, h1, h2, device result tuple)
 
     def gather(self) -> Dict[int, WindowInference]:
         consumed = [t for _, _, _, dev in self.buckets
-                    for t in (dev[1], dev[2], dev[4], dev[6])]
+                    for t in (dev[1], dev[2], dev[4], dev[6], *dev[7:8])]
         host = iter(fetch(consumed))
         out: Dict[int, WindowInference] = {}
-        for items, h1, h2, _dev in self.buckets:
+        for items, h1, h2, dev in self.buckets:
             em, freq, ratio, margin = (np.asarray(next(host), np.float64)
                                        for _ in range(4))
+            metrics.count("k3_windows", len(items))
+            if len(dev) > 7:
+                metrics.count("k3_em_iterations",
+                              int(next(host)[:len(items)].sum()))
             out.update(inference_results_to_windows(items, h1, h2, em, freq,
                                                     ratio, margin))
         self.buckets = []
@@ -195,8 +200,7 @@ def launch_fused_inference(loglik, onehot, hap_mask, var_mask, has_reads,
     on `device` (the infer_window kernels on a card); the single launch of
     both the in-process pipeline (dispatch_device_inference) and the
     device-owner service (engine/device_service.py).  Returns (h1, h2,
-    device result tuple)."""
-    global BATCHES
+    device result tuple).  Counts k3_batches."""
     import torch
 
     from ..ops.likelihood_cuda import infer_window_batch
@@ -210,7 +214,7 @@ def launch_fused_inference(loglik, onehot, hap_mask, var_mask, has_reads,
     dev = infer_window_batch(up(loglik), up(onehot), up(hap_mask),
                              up(h1.astype(np.int32)), up(h2.astype(np.int32)),
                              up(var_mask), up(has_reads), em_iters=em_iters)
-    BATCHES += 1
+    metrics.count("k3_batches")
     return h1, h2, dev
 
 

@@ -30,8 +30,6 @@ A mesh may name one device more than once: the CPU tests build an
 
 from __future__ import annotations
 
-import os
-import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -47,6 +45,7 @@ from ..ops.likelihood_torch import (em_frequencies, genotype_log_likelihoods,
                                     rescale_likelihoods, scores_to_logliks,
                                     variant_posterior_ratio)
 from ..utils.backend import fetch
+from ..utils.observability import GLOBAL_METRICS as metrics
 from .batch import WindowInference, enumerate_window_variants, geom_bucket
 
 _INT32_BIG = int(np.iinfo(np.int32).max)
@@ -244,8 +243,9 @@ def _launch_group(g: dict, mesh: DeviceMesh, use_cap: bool, use_flank: bool,
                   gapextend: int, nucprior: int, em_iters: int) -> list:
     """Queue one group's region step on every device of the mesh.
     Returns per row (number of real pairs, device outputs: K1 scores of
-    the share (None for flank groups), em, freq, ratios, em_margin), all
-    on the row's first device."""
+    the share (None for flank groups), em, freq, ratios, em_margin, and
+    the EM iterations each window ran (None from the plain torch
+    version)), all on the row's first device."""
     n_win, lane = mesh.shape["win"], mesh.shape["lane"]
     Wb, Hmax, Rmax = g["Wb"], g["Hmax"], g["Rmax"]
     Wr = Wb // n_win
@@ -310,11 +310,13 @@ def _launch_group(g: dict, mesh: DeviceMesh, use_cap: bool, use_flank: bool,
                                use_map_qual_cap=use_cap)
         ll = torch.where(aligned[:, None, :], ll, 0.0)
         ll = torch.where(hap_mask[:, :, None], ll, 0.0)
-        _lik, em, freq, _gof, ratios, _gl_rel, margin = infer_window_batch(
-            ll, up(g["onehot"][ws]), hap_mask, up(h1.astype(np.int32)),
-            up(h2.astype(np.int32)), up(g["var_mask"][ws]),
-            up(g["has_reads"][ws]), em_iters)
-        rows.append((n_real, (row_scores, em, freq, ratios, margin)))
+        _lik, em, freq, _gof, ratios, _gl_rel, margin, *iters = \
+            infer_window_batch(
+                ll, up(g["onehot"][ws]), hap_mask, up(h1.astype(np.int32)),
+                up(h2.astype(np.int32)), up(g["var_mask"][ws]),
+                up(g["has_reads"][ws]), em_iters)
+        rows.append((n_real, (row_scores, em, freq, ratios, margin,
+                              iters[0] if iters else None)))
     return rows
 
 
@@ -331,9 +333,31 @@ def mesh_call_region(live, n_individuals: int, mesh: DeviceMesh,
     each device once and returns (loglik_by_idx, inference_by_idx).  The
     per-window log-likelihood matrices are rebuilt on the host from the
     sparse pair scores (window_loglik_from_pair_scores), as in the JAX
-    package.  PLATYPUS_TPU_MESH_TIMERS prints the three [mesh] lines."""
-    timers = os.environ.get("PLATYPUS_TPU_MESH_TIMERS")
-    t0 = time.perf_counter()
+    package.  Spans mesh_pack_launch, mesh_fetch and mesh_unpack time the
+    three phases; the fetch counts k3_windows and k3_em_iterations as
+    batch.PendingInference.gather does."""
+    with metrics.timer("mesh_pack_launch"):
+        launched, leftover = _pack_and_launch(live, n_individuals, mesh,
+                                              gapextend, nucprior, em_iters)
+
+    def _fetch():
+        with metrics.timer("mesh_fetch"):
+            tensors = [t for _g, rows in launched for _real, outs in rows
+                       for t in outs if t is not None]
+            host = dict(zip(map(id, tensors), _fetch_each_device(tensors)))
+        with metrics.timer("mesh_unpack"):
+            return _unpack(launched, host)
+
+    if defer:
+        return _fetch, leftover
+    loglik_by_idx, inference_by_idx = _fetch()
+    return loglik_by_idx, inference_by_idx, leftover
+
+
+def _pack_and_launch(live, n_individuals: int, mesh: DeviceMesh,
+                     gapextend: int, nucprior: int, em_iters: int):
+    """mesh_call_region's groups, each packed and queued on the mesh:
+    ([(group, _launch_group's rows)], leftover)."""
     leftover: list = []
     groups: dict = {}
     for w_idx, prep in live:
@@ -365,56 +389,45 @@ def mesh_call_region(live, n_individuals: int, mesh: DeviceMesh,
                     np.concatenate(scores)
         launched.append((g, _launch_group(g, mesh, use_cap, use_flank,
                                           gapextend, nucprior, em_iters)))
-    if timers:
-        print(f"[mesh] pack+launch {len(groups)} groups: "
-              f"{time.perf_counter() - t0:.3f}s", flush=True)
+    return launched, leftover
 
-    def _fetch():
-        tf = time.perf_counter()
-        tensors = [t for _g, rows in launched for _real, outs in rows
-                   for t in outs if t is not None]
-        host = dict(zip(map(id, tensors), _fetch_each_device(tensors)))
-        if timers:
-            print(f"[mesh] device_get: {time.perf_counter() - tf:.3f}s",
-                  flush=True)
-        tu = time.perf_counter()
-        loglik_by_idx: dict = {}
-        inference_by_idx: dict = {}
-        for g, rows in launched:
-            items = g["items"]
-            h1, h2 = genotype_index_pairs(g["Hmax"])
-            if g["pair_scores"] is not None:
-                scores_h = g["pair_scores"]
-            else:
-                scores_h = np.concatenate(
-                    [host[id(outs[0])][:n_real] for n_real, outs in rows])
-            em_h, freq_h, ratio_h, margin_h = (
-                np.concatenate([np.asarray(host[id(outs[j])], np.float64)
-                                for _real, outs in rows])
-                for j in range(1, 5))
-            for k, (w_idx, prep) in enumerate(items):
-                req = prep.request
-                H = len(prep.all_haps)
-                cols = np.nonzero((h1 < H) & (h2 < H))[0]
-                lo, hi = g["p_first"][k], g["p_first"][k + 1]
-                loglik_by_idx[w_idx] = window_loglik_from_pair_scores(
-                    req, scores_h[lo:hi])
-                inference_by_idx[w_idx] = WindowInference(
-                    em=em_h[k][:, cols],
-                    frequencies=freq_h[k][:H],
-                    ratios={v: float(ratio_h[k, vi])
-                            for vi, v in enumerate(g["variants_by_item"][k])},
-                    em_margin=float(margin_h[k]),
-                )
-        if timers:
-            print(f"[mesh] unpack: {time.perf_counter() - tu:.3f}s",
-                  flush=True)
-        return loglik_by_idx, inference_by_idx
 
-    if defer:
-        return _fetch, leftover
-    loglik_by_idx, inference_by_idx = _fetch()
-    return loglik_by_idx, inference_by_idx, leftover
+def _unpack(launched, host):
+    """(loglik_by_idx, inference_by_idx) of the launched groups from
+    their fetched outputs `host` (by tensor id)."""
+    loglik_by_idx: dict = {}
+    inference_by_idx: dict = {}
+    for g, rows in launched:
+        items = g["items"]
+        h1, h2 = genotype_index_pairs(g["Hmax"])
+        if g["pair_scores"] is not None:
+            scores_h = g["pair_scores"]
+        else:
+            scores_h = np.concatenate(
+                [host[id(outs[0])][:n_real] for n_real, outs in rows])
+        em_h, freq_h, ratio_h, margin_h = (
+            np.concatenate([np.asarray(host[id(outs[j])], np.float64)
+                            for _real, outs in rows])
+            for j in range(1, 5))
+        metrics.count("k3_windows", len(items))
+        if rows[0][1][5] is not None:
+            iters = np.concatenate([host[id(outs[5])] for _real, outs in rows])
+            metrics.count("k3_em_iterations", int(iters[:len(items)].sum()))
+        for k, (w_idx, prep) in enumerate(items):
+            req = prep.request
+            H = len(prep.all_haps)
+            cols = np.nonzero((h1 < H) & (h2 < H))[0]
+            lo, hi = g["p_first"][k], g["p_first"][k + 1]
+            loglik_by_idx[w_idx] = window_loglik_from_pair_scores(
+                req, scores_h[lo:hi])
+            inference_by_idx[w_idx] = WindowInference(
+                em=em_h[k][:, cols],
+                frequencies=freq_h[k][:H],
+                ratios={v: float(ratio_h[k, vi])
+                        for vi, v in enumerate(g["variants_by_item"][k])},
+                em_margin=float(margin_h[k]),
+            )
+    return loglik_by_idx, inference_by_idx
 
 
 # --------------------------------------------------------------------------

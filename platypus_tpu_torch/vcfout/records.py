@@ -30,6 +30,7 @@ from ..config import PlatypusConfig
 from ..engine.caller import WindowCall
 from ..io.bam import CIGAR_D, CIGAR_EQ, CIGAR_I, CIGAR_M, CIGAR_N, CIGAR_S, CIGAR_X
 from ..utils.maths import beta_binomial_cdf, round_ref
+from ..utils.observability import GLOBAL_METRICS as metrics
 from .. import native
 from .writer import FILTER_NAMES, VCFWriter
 
@@ -812,8 +813,9 @@ def output_call_to_vcf(
     Returns the number of lines written."""
     if not call.variant_posteriors:
         return 0
-    info = compute_vcf_info(call, ref_file, config)
-    vcf_filter = compute_vcf_filter(call, info, config)
+    with metrics.timer("vcf_annotate"):
+        info = compute_vcf_info(call, ref_file, config)
+        vcf_filter = compute_vcf_filter(call, info, config)
 
     haplotypes = call.haplotypes
     H = len(haplotypes)
@@ -822,107 +824,108 @@ def output_call_to_vcf(
     n_written = 0
 
     for pos in sorted(call.vars_by_pos.keys()):
-        variants = call.vars_by_pos[pos]
-        n_vars = len(variants)
+        with metrics.timer("vcf_write"):
+            variants = call.vars_by_pos[pos]
+            n_vars = len(variants)
 
-        hap_is_ref = np.ones(H, np.int64)
-        var_in_hap = np.zeros((H, n_vars), bool)
-        for h in range(H):
-            for vi, v in enumerate(variants):
-                if v in hap_var_sets[h]:
-                    var_in_hap[h, vi] = True
-                    if v.min_ref_pos <= pos <= v.max_ref_pos:
+            hap_is_ref = np.ones(H, np.int64)
+            var_in_hap = np.zeros((H, n_vars), bool)
+            for h in range(H):
+                for vi, v in enumerate(variants):
+                    if v in hap_var_sets[h]:
+                        var_in_hap[h, vi] = True
+                        if v.min_ref_pos <= pos <= v.max_ref_pos:
+                            hap_is_ref[h] = 0
+                for v in all_variants:
+                    if v in hap_var_sets[h] and v.min_ref_pos <= pos <= v.max_ref_pos:
                         hap_is_ref[h] = 0
-            for v in all_variants:
-                if v in hap_var_sets[h] and v.min_ref_pos <= pos <= v.max_ref_pos:
-                    hap_is_ref[h] = 0
 
-        chrom = variants[0].ref_name
-        ref, alts = ref_and_alt(chrom, pos, variants, ref_file)
+            chrom = variants[0].ref_name
+            ref, alts = ref_and_alt(chrom, pos, variants, ref_file)
 
-        line_filter: List[str] = []
-        line_info = dict(info[variants[0]])
-        fr: List = []
-        pp: List = []
-        nf: List = []
-        nr: List = []
-        tr: List = []
-        for v in variants:
-            line_filter.extend(f for f in vcf_filter[v] if f in FILTER_NAMES)
-            fr.extend(info[v]["FR"])
-            pp.extend(info[v]["PP"])
-            nr.extend(info[v]["NR"])
-            nf.extend(info[v]["NF"])
-            tr.extend(info[v]["TR"])
-        line_info["WS"] = [call.window.start_pos]
-        line_info["WE"] = [call.window.end_pos]
-        line_info["FR"] = fr
-        line_info["PP"] = pp
-        line_info["NF"] = nf
-        line_info["NR"] = nr
-        line_info["TR"] = tr
-        line_filter = sorted(set(line_filter))
-        qual = max(int(float(p)) for p in line_info["PP"])
+            line_filter: List[str] = []
+            line_info = dict(info[variants[0]])
+            fr: List = []
+            pp: List = []
+            nf: List = []
+            nr: List = []
+            tr: List = []
+            for v in variants:
+                line_filter.extend(f for f in vcf_filter[v] if f in FILTER_NAMES)
+                fr.extend(info[v]["FR"])
+                pp.extend(info[v]["PP"])
+                nr.extend(info[v]["NR"])
+                nf.extend(info[v]["NF"])
+                tr.extend(info[v]["TR"])
+            line_info["WS"] = [call.window.start_pos]
+            line_info["WE"] = [call.window.end_pos]
+            line_info["FR"] = fr
+            line_info["PP"] = pp
+            line_info["NF"] = nf
+            line_info["NR"] = nr
+            line_info["TR"] = tr
+            line_filter = sorted(set(line_filter))
+            qual = max(int(float(p)) for p in line_info["PP"])
 
-        sample_data: Dict[str, Dict[str, list]] = {}
-        max_gof = 0.0
-        n_non_ref_calls = 0
-
-        for i, buf in enumerate(buffers):
-            sample = buf.sample
-            if call.n_reads[i] == 0:
-                sample_data[sample] = dict(
-                    GT=[[".", "/", "."]], GL=[0, 0, 0], GQ=[0], GOF=[0], NR=[0], NV=[0]
+            sample_data: Dict[str, Dict[str, list]] = {}
+            max_gof = 0.0
+            n_non_ref_calls = 0
+        with metrics.timer("vcf_genotypes"):
+            for i, buf in enumerate(buffers):
+                sample = buf.sample
+                if call.n_reads[i] == 0:
+                    sample_data[sample] = dict(
+                        GT=[[".", "/", "."]], GL=[0, 0, 0], GQ=[0], GOF=[0], NR=[0], NV=[0]
+                    )
+                    continue
+                (
+                    index1, index2, likelihoods, genotype_post, non_ref_post,
+                    ref_post, gof_value,
+                ) = compute_genotype_call_and_likelihoods(
+                    call, i, variants, hap_is_ref, var_in_hap, len(buffers)
                 )
-                continue
-            (
-                index1, index2, likelihoods, genotype_post, non_ref_post,
-                ref_post, gof_value,
-            ) = compute_genotype_call_and_likelihoods(
-                call, i, variants, hap_is_ref, var_in_hap, len(buffers)
-            )
-            if not (index1 == 0 and index2 == 0):
-                n_non_ref_calls += 1
-            gt = [str(index1), "/", str(index2)]
-            phred_post = int(min(99, round_ref(-10.0 * math.log10(max(1e-10, 1.0 - genotype_post)))))
-            phred_non_ref = int(min(99, round_ref(-10.0 * math.log10(max(1e-10, 1.0 - non_ref_post)))))
-            phred_ref = int(min(99, round_ref(-10.0 * math.log10(max(1e-10, 1.0 - ref_post)))))
+                if not (index1 == 0 and index2 == 0):
+                    n_non_ref_calls += 1
+                gt = [str(index1), "/", str(index2)]
+                phred_post = int(min(99, round_ref(-10.0 * math.log10(max(1e-10, 1.0 - genotype_post)))))
+                phred_non_ref = int(min(99, round_ref(-10.0 * math.log10(max(1e-10, 1.0 - non_ref_post)))))
+                phred_ref = int(min(99, round_ref(-10.0 * math.log10(max(1e-10, 1.0 - ref_post)))))
 
-            if n_vars == 1 and phred_non_ref < config.min_posterior and phred_ref < config.min_posterior:
-                gt = [".", "/", "."]
-            elif n_vars == 1 and phred_non_ref < config.min_posterior:
-                gt = ["0", "/", "0"]
+                if n_vars == 1 and phred_non_ref < config.min_posterior and phred_ref < config.min_posterior:
+                    gt = [".", "/", "."]
+                elif n_vars == 1 and phred_non_ref < config.min_posterior:
+                    gt = ["0", "/", "0"]
 
-            if n_vars == 1:
-                max_like = max(likelihoods)
-                gls = [round_ref(math.log10(max(x / max_like, 1e-300)), 2) for x in likelihoods]
-            else:
-                gls = [-1, -1, -1]
+                if n_vars == 1:
+                    max_like = max(likelihoods)
+                    gls = [round_ref(math.log10(max(x / max_like, 1e-300)), 2) for x in likelihoods]
+                else:
+                    gls = [-1, -1, -1]
 
-            reads_per_sample = [info[v]["nReadsPerSample"][i] for v in variants]
-            var_reads_per_sample = [info[v]["nVarReadsPerSample"][i] for v in variants]
+                reads_per_sample = [info[v]["nReadsPerSample"][i] for v in variants]
+                var_reads_per_sample = [info[v]["nVarReadsPerSample"][i] for v in variants]
 
-            if n_vars == 1 and reads_per_sample[0] < config.min_reads:
-                gt = [".", "/", "."]
-            sample_data[sample] = dict(
-                GT=[gt], GL=gls, GQ=[phred_post], GOF=[int(gof_value)],
-                NR=reads_per_sample, NV=var_reads_per_sample,
-            )
-            if gof_value > max_gof:
-                max_gof = gof_value
+                if n_vars == 1 and reads_per_sample[0] < config.min_reads:
+                    gt = [".", "/", "."]
+                sample_data[sample] = dict(
+                    GT=[gt], GL=gls, GQ=[phred_post], GOF=[int(gof_value)],
+                    NR=reads_per_sample, NV=var_reads_per_sample,
+                )
+                if gof_value > max_gof:
+                    max_gof = gof_value
+        with metrics.timer("vcf_write"):
+            line_info.pop("nReadsPerSample", None)
+            line_info.pop("nVarReadsPerSample", None)
+            line_info.pop("ABPV", None)
+            line_info["MGOF"] = [int(round_ref(max_gof, 2))]
 
-        line_info.pop("nReadsPerSample", None)
-        line_info.pop("nVarReadsPerSample", None)
-        line_info.pop("ABPV", None)
-        line_info["MGOF"] = [int(round_ref(max_gof, 2))]
-
-        if n_non_ref_calls > 0 or config.min_posterior == 0 or config.output_ref_calls == 1:
-            out_pos, out_ref, out_alts = trim_left_padding(pos, ref, alts)
-            if any(ord(c) not in CANONICAL for c in out_ref):
-                continue
-            writer.write_record(
-                chrom, out_pos, out_ref, out_alts, qual, line_filter,
-                line_info, ["GT", "GL", "GOF", "GQ", "NR", "NV"], sample_data,
-            )
-            n_written += 1
+            if n_non_ref_calls > 0 or config.min_posterior == 0 or config.output_ref_calls == 1:
+                out_pos, out_ref, out_alts = trim_left_padding(pos, ref, alts)
+                if any(ord(c) not in CANONICAL for c in out_ref):
+                    continue
+                writer.write_record(
+                    chrom, out_pos, out_ref, out_alts, qual, line_filter,
+                    line_info, ["GT", "GL", "GOF", "GQ", "NR", "NV"], sample_data,
+                )
+                n_written += 1
     return n_written

@@ -54,12 +54,12 @@ def test_plain_dp_matches_goldens():
 
 def test_cuda_wrapper_on_cpu_tensors_runs_plain_dp():
     """A CPU tensor reaches the plain version; the kernel counter stays."""
-    before = dict(align_cuda.LAUNCHES)
+    before = align_cuda.launches()
     for ge, npr, inputs, want in golden_groups():
         padded = align_torch.pad_alignment_inputs(*inputs)
         got = align_cuda.band_align_padded(*padded, gapextend=ge, nucprior=npr)
         np.testing.assert_array_equal(got.numpy(), want)
-    assert align_cuda.LAUNCHES == before
+    assert align_cuda.launches() == before
 
 
 @pytest.mark.parametrize("seed,B,L2,n_frac,mixed", [
@@ -210,12 +210,12 @@ def test_pair_wrapper_on_cpu_tensors_runs_plain_version():
     counted."""
     mats, idx = _pair_matrices(27, 100, 40, True, 0.01, True)
     args = [torch.from_numpy(a) for a in (*mats, *idx)]
-    before = dict(align_cuda.LAUNCHES)
+    before = align_cuda.launches()
     got = align_cuda.band_align_pairs(*args, gapextend=2, nucprior=1)
     want = align_torch.band_align_padded_reference(
         *align_torch.gather_pad(*args), gapextend=2, nucprior=1)
     assert torch.equal(got, want)
-    assert align_cuda.LAUNCHES == before
+    assert align_cuda.launches() == before
 
 
 @pytest.mark.parametrize("case", PAIR_CASES + ["ties"])
@@ -251,7 +251,7 @@ def test_traceback_wrapper_on_cpu_tensors_runs_plain_dp():
     through identity indices); no launch is counted."""
     cases, inputs = flank_goldens()
     args = pair_inputs(inputs, "cpu")
-    before = dict(align_cuda.LAUNCHES)
+    before = align_cuda.launches()
     got = align_cuda.band_align_traceback_pairs(*args)
     score, idx, bp = align_torch.band_align_traceback_padded_reference(
         *align_torch.gather_pad(*args))
@@ -259,4 +259,4 @@ def test_traceback_wrapper_on_cpu_tensors_runs_plain_dp():
     assert torch.equal(got[2].view(torch.uint16).int(), bp)
     np.testing.assert_array_equal(got[0].numpy(), [c["score"] for c in cases])
     assert flank_golden_mismatches(cases, *(t.numpy() for t in got)) == []
-    assert align_cuda.LAUNCHES == before
+    assert align_cuda.launches() == before

@@ -355,6 +355,10 @@ NOT_PORTED = {
     "PLATYPUS_TPU_NATIVE_LIB": (
         "native/__init__.py", "names a prebuilt native library of the JAX "
         "package; the port's own is named by PLATYPUS_TPU_TORCH_NATIVE_LIB"),
+    "PLATYPUS_TPU_MESH_TIMERS": (
+        "parallel/mesh.py", "prints the mesh's three [mesh] timer lines; "
+        "the port times them as the spans mesh_pack_launch, mesh_fetch and "
+        "mesh_unpack, logged with the engine's other spans"),
 }
 _ENV = re.compile(r"(?<![A-Za-z0-9_])_?PLATYPUS_TPU_[A-Z0-9_]+")
 

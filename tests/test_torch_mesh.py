@@ -275,17 +275,21 @@ def test_port_cli_mesh_matches_jax_default_run(tmp_path, dataset, flank):
     """The port's CLI with --meshDevices=8 on the CPU, in a fresh
     interpreter with jax blocked, writes the data lines of the CPU-pinned
     JAX package's default run (twin of test_s55_real_reads.py:108 on
-    synthetic reads), and prints the [mesh] timers."""
+    synthetic reads), and its --verbosity=3 summary logs the mesh spans."""
     workdir, ref_path = dataset
     extra = ["--calculateFlankScore=1"] if flank else []
     want = reference_lines(workdir, ref_path, extra)
     out = str(tmp_path / "mesh.vcf")
     proc, imports = run_port_cli(
-        tmp_path, cli_args(workdir, ref_path, out, ["--meshDevices=8", *extra]),
-        PLATYPUS_TPU_MESH_TIMERS="1")
+        tmp_path, cli_args(workdir, ref_path, out,
+                           ["--meshDevices=8", "--verbosity=3", *extra]))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert want and data_lines(out) == want
-    assert "[mesh] pack+launch" in proc.stdout and "[mesh] unpack" in proc.stdout
+    with open(f"{out}.log") as fh:
+        summaries = [line for line in fh if " cumulative: " in line]
+    assert summaries
+    for span in ("mesh_pack_launch", "mesh_fetch", "mesh_unpack"):
+        assert f" {span}=" in summaries[-1], summaries[-1]
     assert not [line for line in imports if line.startswith("jax")]
 
 

@@ -90,11 +90,11 @@ def test_lane_chunking_and_padding(region_requests, monkeypatch):
     matrices must not change, and no kernel launch is counted on CPU."""
     want = port_score.dispatch_alignment_requests(region_requests, CPU).finalize()
     monkeypatch.setattr(port_score, "CHUNK_PAIRS", 64)
-    before = dict(align_cuda.LAUNCHES)
+    before = align_cuda.launches()
     pending = port_score.dispatch_alignment_requests(region_requests, CPU)
     assert sum(len(chunks) for _, _, chunks in pending.groups) > 4
     got = pending.finalize()
-    assert align_cuda.LAUNCHES == before
+    assert align_cuda.launches() == before
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
 
@@ -154,10 +154,10 @@ def test_dispatch_rejects_a_segment_before_the_hap_row(region_requests):
     seg = bad[k].pair_seg.copy()
     seg[0] = -1
     bad[k] = dataclasses.replace(bad[k], pair_seg=seg)
-    before = dict(align_cuda.LAUNCHES)
+    before = align_cuda.launches()
     with pytest.raises(ValueError, match="pair_seg"):
         port_score.dispatch_alignment_requests(bad, CPU)
-    assert align_cuda.LAUNCHES == before
+    assert align_cuda.launches() == before
 
 
 def test_host_path_matches_jax_package(region_requests, jax_requests):
@@ -291,14 +291,14 @@ def test_flank_chunks_under_the_byte_bound(flank_requests, region_requests,
             + port_score.dispatch_alignment_requests(plain_reqs, CPU).finalize())
     L2 = flank_requests[0].sub_seq.shape[1]
     monkeypatch.setattr(port_score, "FLANK_BP_BYTES", 50 * (L2 + 8) * 8 * 2)
-    before = dict(align_cuda.LAUNCHES)
+    before = align_cuda.launches()
     pending = port_score.dispatch_alignment_requests(
         flank_requests + plain_reqs, CPU)
     chunks = [c for _, group_chunks in pending.flank_groups for c in group_chunks]
     assert len(chunks) > 5
     assert max(sl.stop - sl.start for _, sl in chunks) == 50
     got = pending.finalize()
-    assert align_cuda.LAUNCHES == before
+    assert align_cuda.launches() == before
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
