@@ -194,6 +194,14 @@ def _load_and_bind(path: str) -> ctypes.CDLL:
         + [ctypes.c_int32] * 5
         + [ctypes.c_void_p] * 6
     )
+    lib.ptpu_info_accumulate_window.restype = None
+    lib.ptpu_info_accumulate_window.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32]
+        + [ctypes.c_void_p] * 9
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int64]          # rows
+        + [ctypes.c_int32] * 2 + [ctypes.c_void_p] * 3       # variants
+        + [ctypes.c_int32] * 2 + [ctypes.c_void_p] * 4       # outputs
+    )
     lib.ptpu_em_f64.restype = ctypes.c_int32
     lib.ptpu_em_f64.argtypes = [
         ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
@@ -250,6 +258,16 @@ def _load_and_bind(path: str) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.ptpu_genotype_call_samples.restype = None
+    lib.ptpu_genotype_call_samples.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p,
     ]
     return lib
 
@@ -655,24 +673,30 @@ def native_variant_supported(cigar_flat: np.ndarray, cigar_off: np.ndarray,
 
 def native_info_context(reads, nsm_idx: np.ndarray, nsm_flat: np.ndarray,
                         nsm_off: np.ndarray):
-    """Per-window prepared arrays for native_info_accumulate (keeps the
-    contiguous copies + pointer conversions out of the per-variant loop).
-    None when the library is unavailable."""
+    """Per-window prepared arguments for native_info_accumulate and
+    native_info_accumulate_window, made once a window.  The [R, L] and
+    CIGAR tables go by address; the per-read columns go as bytes (a copy
+    of a few KB costs less than an address).  None when the library is
+    unavailable."""
     lib = load()
     if lib is None:
         return None
-    arrs = (
-        reads.seq, reads.qual,
-        np.ascontiguousarray(reads.pos, np.int64),
-        np.ascontiguousarray(reads.end, np.int64),
-        np.ascontiguousarray(reads.rlen, np.int32),
-        np.ascontiguousarray(reads.mapq, np.int32),
-        np.ascontiguousarray(reads.strand_reverse).view(np.uint8),
-        np.ascontiguousarray(reads.single_m()).view(np.uint8),
-        nsm_idx, nsm_flat, nsm_off,
+    arrs = (reads.seq, reads.qual, nsm_flat, nsm_off)
+    args = (
+        reads.seq.ctypes.data, reads.qual.ctypes.data,
+        np.ascontiguousarray(reads.pos, np.int64).tobytes(),
+        np.ascontiguousarray(reads.end, np.int64).tobytes(),
+        np.ascontiguousarray(reads.rlen, np.int32).tobytes(),
+        np.ascontiguousarray(reads.mapq, np.int32).tobytes(),
+        reads.strand_reverse.astype(np.bool_, copy=False).tobytes(),
+        reads.single_m().astype(np.bool_, copy=False).tobytes(),
+        np.ascontiguousarray(nsm_idx, np.int32).tobytes(),
+        nsm_flat.ctypes.data, nsm_off.ctypes.data,
+        np.ascontiguousarray(reads.sample_idx, np.int32).tobytes(),
+        reads.is_good.astype(np.bool_, copy=False).tobytes(),
+        reads.is_broken.astype(np.bool_, copy=False).tobytes(),
     )
-    ptrs = tuple(_np_ptr(a) for a in arrs)
-    return (lib, arrs, ptrs, reads.seq.shape[1])
+    return (lib, arrs, args, reads.seq.shape[1], len(reads.rlen))
 
 
 def native_info_accumulate(ctx, good_rows: np.ndarray, bad_rows: np.ndarray,
@@ -682,7 +706,7 @@ def native_info_accumulate(ctx, good_rows: np.ndarray, bad_rows: np.ndarray,
     """One (variant, individual) INFO accounting pass in C++ over a
     native_info_context.  Returns (counters[13] int64, rmsmq float,
     min_quals, alt_dists, ref_dists)."""
-    lib, arrs, p, L = ctx
+    lib, _arrs, p, L, _R = ctx
     cap = max(1, len(good_rows))
     counters = np.zeros(13, np.int64)
     rmsmq = ctypes.c_double()
@@ -703,6 +727,38 @@ def native_info_accumulate(ctx, good_rows: np.ndarray, bad_rows: np.ndarray,
     n_minq, n_alt, n_ref = out_counts.tolist()
     return (counters, rmsmq.value, min_quals[:n_minq].tolist(),
             alt_dists[:n_alt].tolist(), ref_dists[:n_ref].tolist())
+
+
+def native_info_accumulate_window(ctx, n_ind: int, var_spec: np.ndarray,
+                                  added: bytes, var_in_genotype: bytes,
+                                  exact: bool, bad_reads_window: int):
+    """Every (variant, individual) INFO accounting pass of a window in one
+    C++ call over a native_info_context; the C side groups the rows by
+    individual.  var_spec is [V, 5] int64 (var_min, var_max, var_pos,
+    n_removed, n_added), `added` the variants' added bases back to back,
+    var_in_genotype [V * I] bytes of 0 / 1.  Returns (counters [V, I, 14]
+    int64: the 13 counters of native_info_accumulate and the pass's number
+    of min quals; rmsmq [V, I] f64; the passes' min quals, in pass order;
+    the window's good and bad row counts)."""
+    lib, _arrs, p, L, R = ctx
+    V = len(var_spec)
+    if (len(var_in_genotype) != V * n_ind
+            or len(added) != int(np.sum(var_spec[:, 4]))):
+        raise ValueError("variant spec, added bases and var_in_genotype "
+                         "disagree on the window's shape")
+    counters = np.empty((V, n_ind, 14), np.int64)
+    rmsmq = np.empty((V, n_ind), np.float64)
+    min_quals = np.empty(max(1, V * R), np.int32)
+    n_good_bad = np.empty(2, np.int64)
+    lib.ptpu_info_accumulate_window(
+        *p[:2], L, *p[2:], R, n_ind, V,
+        np.ascontiguousarray(var_spec, np.int64).tobytes(), added,
+        var_in_genotype, int(exact), bad_reads_window,
+        _np_ptr(counters), _np_ptr(rmsmq), _np_ptr(min_quals),
+        _np_ptr(n_good_bad),
+    )
+    return (counters, rmsmq, min_quals[:int(counters[:, :, 13].sum())],
+            int(n_good_bad[0]), int(n_good_bad[1]))
 
 
 def native_trim_reads(reads, good_mask: np.ndarray, trim_read_flank: int,
@@ -1062,6 +1118,49 @@ def native_genotype_call(lik_row: np.ndarray, freqs: np.ndarray,
         gf.ctypes.data, gf.shape[1], gof_off, n_individuals,
         lik_out.ctypes.data, phased.ctypes.data, scalars.ctypes.data)
     return lik_out, phased, scalars
+
+
+def native_genotype_context(likelihoods: np.ndarray, freqs: np.ndarray,
+                            h1: np.ndarray, h2: np.ndarray, gof: np.ndarray,
+                            samples: np.ndarray, n_individuals: int):
+    """Per-window prepared arguments for native_genotype_call_samples, made
+    once a window (as bytes: a copy of a window's tables costs less than
+    their addresses): the samples to call are `samples`.  None when the
+    library is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    I, G = likelihoods.shape
+    return (lib, I, G, len(freqs), gof.shape[1], len(samples), n_individuals,
+            np.ascontiguousarray(likelihoods, np.float64).tobytes(),
+            np.ascontiguousarray(freqs, np.float64).tobytes(),
+            np.ascontiguousarray(h1, np.int64).tobytes(),
+            np.ascontiguousarray(h2, np.int64).tobytes(),
+            np.ascontiguousarray(gof, np.float64).tobytes(),
+            np.ascontiguousarray(samples, np.int64).tobytes())
+
+
+def native_genotype_call_samples(ctx, hap_is_ref: np.ndarray,
+                                 var_in_hap: np.ndarray):
+    """The genotype calls of the context's samples at one position in one
+    C++ call (genotype.cpp, the per-sample body of native_genotype_call).
+    Returns [I, n_classes + 7] f64 rows: the class marginals, then
+    best_likelihood, non_ref_post, ref_post, sum_lik, best_gof, phased1,
+    phased2; rows of other samples undefined."""
+    (lib, I, G, H, gof_stride, n_samples, n_individuals, lik, fq, h1, h2,
+     gof, samples) = ctx
+    n_vars = var_in_hap.shape[1]
+    if len(hap_is_ref) != H or len(var_in_hap) != H:
+        raise ValueError("hap_is_ref, var_in_hap and the frequencies "
+                         "disagree on the haplotype count")
+    width = (n_vars + 1) * (n_vars + 2) // 2 + 7
+    out = np.empty((I, width), np.float64)
+    lib.ptpu_genotype_call_samples(
+        lik, fq, h1, h2, G,
+        np.ascontiguousarray(hap_is_ref, np.int64).tobytes(),
+        np.ascontiguousarray(var_in_hap, np.bool_).tobytes(), n_vars,
+        gof, gof_stride, samples, n_samples, n_individuals, _np_ptr(out))
+    return out
 
 
 def native_em(likelihoods: np.ndarray, h1: np.ndarray, h2: np.ndarray,

@@ -17,7 +17,7 @@
 
 #include "np_sum.h"
 
-extern "C" {
+namespace {
 
 // lik: [G] relative likelihoods for ONE sample (row of [I, G]).
 // freqs: [H] EM haplotype frequencies.
@@ -29,7 +29,7 @@ extern "C" {
 // Outputs: lik_out [(n_vars+1)(n_vars+2)/2] marginals in class order,
 // phased_out [2] = (phased1, phased2), scalars_out [5] =
 // (best_likelihood, non_ref_post, ref_post, sum_lik, best_gof).
-void ptpu_genotype_call(
+void genotype_call_one(
     const double* lik, const double* freqs,
     const int64_t* h1, const int64_t* h2, int64_t G,
     const int64_t* hap_is_ref,
@@ -152,6 +152,51 @@ void ptpu_genotype_call(
     scalars_out[2] = ref_post;
     scalars_out[3] = sum_lik;
     scalars_out[4] = best_gof;
+}
+
+}  // namespace
+
+extern "C" {
+
+void ptpu_genotype_call(
+    const double* lik, const double* freqs,
+    const int64_t* h1, const int64_t* h2, int64_t G,
+    const int64_t* hap_is_ref,
+    const uint8_t* var_in_hap, int64_t n_vars,
+    const double* gof, int64_t gof_stride, int64_t gof_off,
+    int32_t n_individuals,
+    double* lik_out, int32_t* phased_out, double* scalars_out) {
+    genotype_call_one(lik, freqs, h1, h2, G, hap_is_ref, var_in_hap, n_vars,
+                      gof, gof_stride, gof_off, n_individuals, lik_out,
+                      phased_out, scalars_out);
+}
+
+// Every listed sample of one emitted position in one call: lik is the
+// window's [I, G] row-major likelihoods, gof its [G, gof_stride] matrix,
+// samples[n_samples] the sample indices to call (those with reads).
+// Sample s writes row s of out [I, n_classes + 7]: the n_classes
+// marginals, the 5 scalars of ptpu_genotype_call, then phased1 and
+// phased2; other rows are left as they are.
+void ptpu_genotype_call_samples(
+    const double* lik, const double* freqs,
+    const int64_t* h1, const int64_t* h2, int64_t G,
+    const int64_t* hap_is_ref,
+    const uint8_t* var_in_hap, int64_t n_vars,
+    const double* gof, int64_t gof_stride,
+    const int64_t* samples, int64_t n_samples, int32_t n_individuals,
+    double* out) {
+    const int64_t n_classes = (n_vars + 1) * (n_vars + 2) / 2;
+    const int64_t width = n_classes + 7;
+    int32_t phased[2];
+    for (int64_t k = 0; k < n_samples; ++k) {
+        const int64_t s = samples[k];
+        double* row = out + s * width;
+        genotype_call_one(lik + s * G, freqs, h1, h2, G, hap_is_ref,
+                          var_in_hap, n_vars, gof, gof_stride, s,
+                          n_individuals, row, phased, row + n_classes);
+        row[n_classes + 5] = phased[0];
+        row[n_classes + 6] = phased[1];
+    }
 }
 
 }  // extern "C"

@@ -561,29 +561,40 @@ inline bool overlap_qualgood_row(int64_t pos, int64_t end, int32_t rl,
     return true;
 }
 
-}  // namespace
+// The window's read arrays, shared by every (variant, individual) pass.
+struct InfoReads {
+    const uint8_t* seq;
+    const uint8_t* qual;
+    int32_t L;
+    const int64_t* pos;
+    const int64_t* end;
+    const int32_t* rlen;
+    const int32_t* mapq;
+    const uint8_t* strand_reverse;
+    const uint8_t* single_m;
+    const int32_t* nsm_idx;
+    const uint32_t* nsm_flat;
+    const int64_t* nsm_off;
+};
 
-extern "C" void ptpu_info_accumulate(
-    // Window read arrays (row-major [R, L] seq/qual).
-    const uint8_t* seq, const uint8_t* qual, int32_t L, const int64_t* pos,
-    const int64_t* end, const int32_t* rlen, const int32_t* mapq,
-    const uint8_t* strand_reverse, const uint8_t* single_m,
-    // Non-single-M CIGAR access: row -> index into the window CSR (-1 when
-    // single-M), plus the CSR itself.
-    const int32_t* nsm_idx, const uint32_t* nsm_flat, const int64_t* nsm_off,
-    // The individual's raw (pre-filter) good/bad row ids.
-    const int64_t* good_rows, int64_t n_good_rows,
-    const int64_t* bad_rows, int64_t n_bad_rows,
-    // Variant spec.
-    int64_t var_min, int64_t var_max, int64_t var_pos, const char* added,
-    int32_t n_add, int32_t n_rem, int32_t exact, int32_t var_in_genotype,
-    int32_t bad_reads_window,
-    // Outputs: counters[13] = tc, tc_bad, tr, tc_ab, tr_ab, nf, nr, nf_sb,
-    // nr_sb, tcf, tcr, tcf_sb, tcr_sb; rmsmq; min_quals / alt_dists /
-    // ref_dists are caller-alloc'd with capacity n_good_rows, their fill
-    // counts land in out_counts[3].
-    int64_t* counters, double* rmsmq, int32_t* min_quals, int32_t* alt_dists,
-    int32_t* ref_dists, int64_t* out_counts) {
+// One (variant, individual) pass: counters[13], rmsmq, and min_quals
+// (capacity n_good_rows); alt_dists / ref_dists are filled when given.
+// Fill counts land in out_counts[3].
+void info_accumulate_one(
+    const InfoReads& w, const int64_t* good_rows, int64_t n_good_rows,
+    const int64_t* bad_rows, int64_t n_bad_rows, int64_t var_min,
+    int64_t var_max, int64_t var_pos, const char* added, int32_t n_add,
+    int32_t n_rem, int32_t exact, int32_t var_in_genotype,
+    int32_t bad_reads_window, int64_t* counters, double* rmsmq,
+    int32_t* min_quals, int32_t* alt_dists, int32_t* ref_dists,
+    int64_t* out_counts) {
+    const uint8_t* seq = w.seq;
+    const uint8_t* qual = w.qual;
+    const int32_t L = w.L;
+    const int64_t* pos = w.pos;
+    const int64_t* end = w.end;
+    const int32_t* rlen = w.rlen;
+    const int32_t* mapq = w.mapq;
     int64_t tc = 0, tc_bad = 0, tr = 0, tc_ab = 0, tr_ab = 0;
     int64_t nf = 0, nr = 0, nf_sb = 0, nr_sb = 0;
     int64_t tcf = 0, tcr = 0, tcf_sb = 0, tcr_sb = 0;
@@ -607,7 +618,7 @@ extern "C" void ptpu_info_accumulate(
             continue;
         ++tc;
         rms += (double)mapq[r] * (double)mapq[r];
-        const bool rev = strand_reverse[r] != 0;
+        const bool rev = w.strand_reverse[r] != 0;
         if (rev) ++tcr; else ++tcf;
         if (var_in_genotype) {
             ++tc_ab;
@@ -617,7 +628,7 @@ extern "C" void ptpu_info_accumulate(
         // Support.
         uint8_t supp = 0;
         const uint8_t* srow = seq + r * L;
-        if (single_m[r]) {
+        if (w.single_m[r]) {
             if (n_add == n_rem) {
                 const int64_t start = var_pos - pos[r];
                 if (start >= 0 && start + n_add <= rl && start < rl &&
@@ -625,19 +636,21 @@ extern "C" void ptpu_info_accumulate(
                     supp = 1;
             }
         } else {
-            const int32_t ci = nsm_idx[r];
+            const int32_t ci = w.nsm_idx[r];
             if (ci >= 0)
-                supp = walk_supported(nsm_flat, nsm_off[ci], nsm_off[ci + 1],
-                                      srow, L, pos[r], rl, var_pos, added,
-                                      n_add, n_rem, exact);
+                supp = walk_supported(w.nsm_flat, w.nsm_off[ci],
+                                      w.nsm_off[ci + 1], srow, L, pos[r], rl,
+                                      var_pos, added, n_add, n_rem, exact);
         }
 
         // Distance of the variant from the nearer read end.
-        int64_t off = var_min - pos[r];
-        if (off < 0) off = 0; else if (off > rl - 1) off = rl - 1;
-        const int64_t dist = off < rl - 1 - off ? off : rl - 1 - off;
-        if (supp) alt_dists[n_alt++] = (int32_t)dist;
-        else ref_dists[n_ref++] = (int32_t)dist;
+        if (alt_dists != nullptr) {
+            int64_t off = var_min - pos[r];
+            if (off < 0) off = 0; else if (off > rl - 1) off = rl - 1;
+            const int64_t dist = off < rl - 1 - off ? off : rl - 1 - off;
+            if (supp) alt_dists[n_alt++] = (int32_t)dist;
+            else ref_dists[n_ref++] = (int32_t)dist;
+        }
 
         if (supp) {
             ++tr;
@@ -667,4 +680,110 @@ extern "C" void ptpu_info_accumulate(
     counters[12] = tcr_sb;
     *rmsmq = rms;
     out_counts[0] = n_minq; out_counts[1] = n_alt; out_counts[2] = n_ref;
+}
+
+}  // namespace
+
+extern "C" void ptpu_info_accumulate(
+    // Window read arrays (row-major [R, L] seq/qual).
+    const uint8_t* seq, const uint8_t* qual, int32_t L, const int64_t* pos,
+    const int64_t* end, const int32_t* rlen, const int32_t* mapq,
+    const uint8_t* strand_reverse, const uint8_t* single_m,
+    // Non-single-M CIGAR access: row -> index into the window CSR (-1 when
+    // single-M), plus the CSR itself.
+    const int32_t* nsm_idx, const uint32_t* nsm_flat, const int64_t* nsm_off,
+    // The individual's raw (pre-filter) good/bad row ids.
+    const int64_t* good_rows, int64_t n_good_rows,
+    const int64_t* bad_rows, int64_t n_bad_rows,
+    // Variant spec.
+    int64_t var_min, int64_t var_max, int64_t var_pos, const char* added,
+    int32_t n_add, int32_t n_rem, int32_t exact, int32_t var_in_genotype,
+    int32_t bad_reads_window,
+    // Outputs: counters[13] = tc, tc_bad, tr, tc_ab, tr_ab, nf, nr, nf_sb,
+    // nr_sb, tcf, tcr, tcf_sb, tcr_sb; rmsmq; min_quals / alt_dists /
+    // ref_dists are caller-alloc'd with capacity n_good_rows, their fill
+    // counts land in out_counts[3].
+    int64_t* counters, double* rmsmq, int32_t* min_quals, int32_t* alt_dists,
+    int32_t* ref_dists, int64_t* out_counts) {
+    const InfoReads w{seq, qual, L, pos, end, rlen, mapq, strand_reverse,
+                      single_m, nsm_idx, nsm_flat, nsm_off};
+    info_accumulate_one(w, good_rows, n_good_rows, bad_rows, n_bad_rows,
+                        var_min, var_max, var_pos, added, n_add, n_rem, exact,
+                        var_in_genotype, bad_reads_window, counters, rmsmq,
+                        min_quals, alt_dists, ref_dists, out_counts);
+}
+
+// Every (variant, individual) pass of a window in one call.  The rows are
+// grouped by individual here, in one stable counting pass over sample_idx:
+// individual i's good rows (is_good) and bad rows (neither good nor
+// broken), each ascending.  Variant v is var_spec[v] = (var_min, var_max,
+// var_pos, n_removed, n_added), its added bases the next n_added of
+// added_flat; var_in_genotype is [V, I] row-major.  Outputs: counters
+// [V, I, 14] (the 13 of ptpu_info_accumulate, then the pass's number of
+// min quals), rmsmq [V, I], the min quals of the passes in order
+// (capacity V x n_rows), and n_good_bad[2] = the window's good and bad
+// rows over every individual.
+extern "C" void ptpu_info_accumulate_window(
+    const uint8_t* seq, const uint8_t* qual, int32_t L, const int64_t* pos,
+    const int64_t* end, const int32_t* rlen, const int32_t* mapq,
+    const uint8_t* strand_reverse, const uint8_t* single_m,
+    const int32_t* nsm_idx, const uint32_t* nsm_flat, const int64_t* nsm_off,
+    const int32_t* sample_idx, const uint8_t* is_good,
+    const uint8_t* is_broken, int64_t n_rows, int32_t n_ind, int32_t n_var,
+    const int64_t* var_spec, const char* added_flat,
+    const uint8_t* var_in_genotype, int32_t exact, int32_t bad_reads_window,
+    int64_t* counters, double* rmsmq, int32_t* min_quals,
+    int64_t* n_good_bad) {
+    const InfoReads w{seq, qual, L, pos, end, rlen, mapq, strand_reverse,
+                      single_m, nsm_idx, nsm_flat, nsm_off};
+    // CSR offsets: good_off [n_ind + 1], then bad_off [n_ind + 1] into the
+    // bad rows, which follow the good ones in `rows`.
+    thread_local std::vector<int64_t> off, cursor, rows;
+    off.assign(2 * ((size_t)n_ind + 1), 0);
+    int64_t* good_off = off.data();
+    int64_t* bad_off = good_off + n_ind + 1;
+    for (int64_t r = 0; r < n_rows; ++r) {
+        const int32_t s = sample_idx[r];
+        if (s < 0 || s >= n_ind) continue;
+        if (is_good[r]) ++good_off[s + 1];
+        else if (!is_broken[r]) ++bad_off[s + 1];
+    }
+    for (int32_t i = 0; i < n_ind; ++i) {
+        good_off[i + 1] += good_off[i];
+        bad_off[i + 1] += bad_off[i];
+    }
+    const int64_t n_good = good_off[n_ind], n_bad = bad_off[n_ind];
+    rows.resize((size_t)(n_good + n_bad) + 1);
+    int64_t* good_rows = rows.data();
+    int64_t* bad_rows = good_rows + n_good;
+    cursor.assign(off.begin(), off.end());
+    for (int64_t r = 0; r < n_rows; ++r) {
+        const int32_t s = sample_idx[r];
+        if (s < 0 || s >= n_ind) continue;
+        if (is_good[r]) good_rows[cursor[s]++] = r;
+        else if (!is_broken[r]) bad_rows[cursor[n_ind + 1 + s]++] = r;
+    }
+    n_good_bad[0] = n_good;
+    n_good_bad[1] = n_bad;
+
+    int64_t fill[3];
+    int64_t n_minq = 0;
+    const char* added = added_flat;
+    for (int32_t v = 0; v < n_var; ++v) {
+        const int64_t* spec = var_spec + 5 * (int64_t)v;
+        const int32_t n_add = (int32_t)spec[4];
+        for (int32_t i = 0; i < n_ind; ++i) {
+            const int64_t k = (int64_t)v * n_ind + i;
+            int64_t* c = counters + k * 14;
+            info_accumulate_one(
+                w, good_rows + good_off[i], good_off[i + 1] - good_off[i],
+                bad_rows + bad_off[i], bad_off[i + 1] - bad_off[i],
+                spec[0], spec[1], spec[2], added, n_add, (int32_t)spec[3],
+                exact, var_in_genotype[k], bad_reads_window, c, rmsmq + k,
+                min_quals + n_minq, nullptr, nullptr, fill);
+            c[13] = fill[0];
+            n_minq += fill[0];
+        }
+        added += n_add;
+    }
 }

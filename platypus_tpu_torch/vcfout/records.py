@@ -222,30 +222,75 @@ def _window_nsm_csr(reads):
     return nsm_idx, nsm_flat, nsm_off
 
 
-def compute_vcf_info(call: WindowCall, ref_file, config: PlatypusConfig) -> Dict[Variant, dict]:
-    """Per-variant INFO dict (vcfutils.pyx:1226-1459)."""
-    reads = call.reads
-    hap_score = compute_haplotype_score(call)
+def _var_in_genotype(call: WindowCall, variants: List[Variant]) -> bytes:
+    """[V, I] row-major bytes of 0 / 1: variant v lies on a haplotype of
+    individual i's called genotype.  One membership test per (haplotype
+    called, variant)."""
+    V, I = len(variants), len(call.genotype_calls)
+    hap_rows: Dict[int, List[bool]] = {}
 
-    # Haplotype-level seeds: FR/PP/HP/SC (vcfutils.pyx:1118-1152).
-    info: Dict[Variant, dict] = {}
-    for hap_index, hap in enumerate(call.haplotypes):
-        seed = hap.vcf_info_seed()
-        for var, value in seed.items():
-            if var not in call.variant_posteriors:
-                continue
-            if var not in info:
-                info[var] = dict(
-                    HP=value["HP"],
-                    PP=["%.0f" % call.variant_posteriors[var]],
-                    FR=[float(call.frequencies[hap_index])],
-                    SC=value["SC"],
-                )
-            else:
-                info[var]["FR"][0] += float(call.frequencies[hap_index])
+    def on_hap(h: int) -> List[bool]:
+        row = hap_rows.get(h)
+        if row is None:
+            hap_vars = call.hap_var_sets[h]
+            row = hap_rows[h] = [v in hap_vars for v in variants]
+        return row
 
-    hap_var_sets = call.hap_var_sets
+    out = bytearray(V * I)
+    for i, gt_idx in enumerate(call.genotype_calls):
+        if gt_idx is None:
+            continue
+        a = on_hap(int(call.hap1_idx[gt_idx]))
+        b = on_hap(int(call.hap2_idx[gt_idx]))
+        for k in range(V):
+            if a[k] or b[k]:
+                out[k * I + i] = 1
+    return bytes(out)
 
+
+def _info_accounts_native(reads, call: WindowCall, variants: List[Variant],
+                          config: PlatypusConfig):
+    """Per variant (13 totals, rmsmq, sorted min quals, reads per sample,
+    variant reads per sample), and the window's good and bad row counts,
+    from one native call over the window; None when the library is
+    unavailable."""
+    window_fn = getattr(native, "native_info_accumulate_window", None)
+    if window_fn is None or native.load() is None or not reads.qual.size:
+        return None
+    # The region gather precomputes the non-single-M CSR (shared flat
+    # tables + one idx gather per window); windows built outside the
+    # region matrix derive it here.
+    info_ctx = native.native_info_context(
+        reads, *(reads.nsm_ctx or _window_nsm_csr(reads)))
+    n_ind = len(call.n_reads)
+    counters, rms, min_quals, n_good, n_bad = window_fn(
+        info_ctx, n_ind,
+        np.array([(v.bam_min_pos, v.bam_max_pos, v.ref_pos, v.n_removed,
+                   v.n_added) for v in variants], np.int64).reshape(-1, 5),
+        b"".join(v.added for v in variants), _var_in_genotype(call, variants),
+        bool(config.count_only_exact_indel_matches), config.bad_reads_window)
+    metrics.count("vcf_native_calls")
+    metrics.count("vcf_native_rows", len(variants) * n_ind)
+    min_quals = min_quals.tolist()
+    lo = 0
+    out = []
+    for rows, rms_row in zip(counters.tolist(), rms.tolist()):
+        # MQ's fold: per individual, in individual order, from 0.0.
+        rmsmq = 0.0
+        for x in rms_row:
+            rmsmq += x
+        cols = list(zip(*rows))
+        hi = lo + sum(cols[13])
+        out.append(([sum(c) for c in cols[:13]], rmsmq,
+                    sorted(min_quals[lo:hi]), list(cols[0]), list(cols[2])))
+        lo = hi
+    return out, n_good, n_bad
+
+
+def _info_accounts_numpy(reads, call: WindowCall, variants: List[Variant],
+                         config: PlatypusConfig):
+    """What _info_accounts_native returns, from numpy one (variant,
+    individual) at a time: the fallback when the library is unavailable."""
     n_ind = len(call.n_reads)
     good_rows_by_ind = [
         np.nonzero((reads.sample_idx == i) & reads.is_good)[0] for i in range(n_ind)
@@ -254,32 +299,17 @@ def compute_vcf_info(call: WindowCall, ref_file, config: PlatypusConfig) -> Dict
         np.nonzero((reads.sample_idx == i) & ~reads.is_good & ~reads.is_broken)[0]
         for i in range(n_ind)
     ]
-    n_good = sum(len(r) for r in good_rows_by_ind)
-    n_bad = sum(len(r) for r in bad_rows_by_ind)
-
     single_m = reads.single_m()
     exact_indels = bool(config.count_only_exact_indel_matches)
     col = np.arange(reads.qual.shape[1]) if reads.qual.size else np.zeros(0, np.int64)
-
-    # Native fast path: the whole per-(variant, individual) accounting loop
-    # runs in one C++ call (ptpu_info_accumulate); the numpy body below is
-    # the fallback and oracle.
-    info_ctx = None
-    if native.load() is not None and reads.qual.size:
-        # The region gather precomputes the non-single-M CSR (shared flat
-        # tables + one idx gather per window); windows built outside the
-        # region matrix derive it here.
-        nsm = reads.nsm_ctx or _window_nsm_csr(reads)
-        info_ctx = native.native_info_context(reads, *nsm)
-    use_native_info = info_ctx is not None
+    var_in_gt = _var_in_genotype(call, variants)
 
     # Cumulative count of low-qual (<5) columns per read: turns each
     # variant's "all quals >= 5 in span" check from an [R, L] mask into two
     # gathers (computed once per window, used per variant x individual).
-    # Fallback-path only — the native pass checks spans directly.
     L = reads.qual.shape[1]
     lowq_cum = np.zeros((0, 0), np.int32)
-    if reads.qual.size and not use_native_info:
+    if reads.qual.size:
         lowq_cum = np.zeros((len(reads.qual), L + 1), np.int32)
         np.cumsum(reads.qual < 5, axis=1, out=lowq_cum[:, 1:])
 
@@ -353,7 +383,8 @@ def compute_vcf_info(call: WindowCall, ref_file, config: PlatypusConfig) -> Dict
             )
         return out
 
-    for variant, vinfo in info.items():
+    out = []
+    for k, variant in enumerate(variants):
         var_min = variant.bam_min_pos
         var_max = variant.bam_max_pos
         tc = tc_bad = tr = 0
@@ -366,31 +397,7 @@ def compute_vcf_info(call: WindowCall, ref_file, config: PlatypusConfig) -> Dict
         n_var_reads_per_sample: List[int] = []
 
         for i in range(n_ind):
-            gt_idx = call.genotype_calls[i]
-            var_in_genotype = False
-            if gt_idx is not None:
-                h1 = call.hap1_idx[gt_idx]
-                h2 = call.hap2_idx[gt_idx]
-                var_in_genotype = variant in hap_var_sets[h1] or variant in hap_var_sets[h2]
-
-            if use_native_info:
-                c, rms, minq, alt_d, ref_d = native.native_info_accumulate(
-                    info_ctx, good_rows_by_ind[i], bad_rows_by_ind[i],
-                    var_min, var_max, variant.ref_pos, variant.added,
-                    variant.n_removed, exact_indels, var_in_genotype,
-                    config.bad_reads_window,
-                )
-                cl = c.tolist()  # one conversion instead of 13 int() calls
-                tc += cl[0]; tc_bad += cl[1]; tr += cl[2]
-                tc_ab += cl[3]; tr_ab += cl[4]; nf += cl[5]
-                nr += cl[6]; nf_sb += cl[7]; nr_sb += cl[8]
-                tcf += cl[9]; tcr += cl[10]; tcf_sb += cl[11]
-                tcr_sb += cl[12]; rmsmq += rms
-                min_quals.extend(minq)
-                n_reads_per_sample.append(cl[0])
-                n_var_reads_per_sample.append(cl[2])
-                continue
-
+            var_in_genotype = bool(var_in_gt[k * n_ind + i])
             brows = overlap_qualgood(bad_rows_by_ind[i], var_min, var_max)
             tc_bad += len(brows)
             if len(brows):
@@ -436,6 +443,50 @@ def compute_vcf_info(call: WindowCall, ref_file, config: PlatypusConfig) -> Dict
             n_reads_per_sample.append(n_reads_this)
             n_var_reads_per_sample.append(n_var_reads_this)
 
+        min_quals.sort()
+        out.append(([tc, tc_bad, tr, tc_ab, tr_ab, nf, nr, nf_sb, nr_sb,
+                     tcf, tcr, tcf_sb, tcr_sb], rmsmq, min_quals,
+                    n_reads_per_sample, n_var_reads_per_sample))
+    return (out, sum(len(r) for r in good_rows_by_ind),
+            sum(len(r) for r in bad_rows_by_ind))
+
+
+def compute_vcf_info(call: WindowCall, ref_file, config: PlatypusConfig) -> Dict[Variant, dict]:
+    """Per-variant INFO dict (vcfutils.pyx:1226-1459)."""
+    reads = call.reads
+    hap_score = compute_haplotype_score(call)
+
+    # Haplotype-level seeds: FR/PP/HP/SC (vcfutils.pyx:1118-1152).
+    info: Dict[Variant, dict] = {}
+    for hap_index, hap in enumerate(call.haplotypes):
+        seed = hap.vcf_info_seed()
+        for var, value in seed.items():
+            if var not in call.variant_posteriors:
+                continue
+            if var not in info:
+                info[var] = dict(
+                    HP=value["HP"],
+                    PP=["%.0f" % call.variant_posteriors[var]],
+                    FR=[float(call.frequencies[hap_index])],
+                    SC=value["SC"],
+                )
+            else:
+                info[var]["FR"][0] += float(call.frequencies[hap_index])
+
+    # Native fast path: every (variant, individual) accounting pass of the
+    # window in one C++ call (ptpu_info_accumulate_window); the numpy body
+    # is the fallback.
+    variants = list(info)
+    res = _info_accounts_native(reads, call, variants, config) if variants else None
+    if res is None:
+        res = _info_accounts_numpy(reads, call, variants, config)
+    accounts, n_good, n_bad = res
+
+    for variant, (totals, rmsmq, min_quals, n_reads_per_sample,
+                  n_var_reads_per_sample) in zip(variants, accounts):
+        vinfo = info[variant]
+        (tc, tc_bad, tr, tc_ab, tr_ab, nf, nr, nf_sb, nr_sb,
+         tcf, tcr, tcf_sb, tcr_sb) = totals
         # ReadPosRankSum is declared in the reference's INFO header but
         # NEVER computed for variant lines (only a "." placeholder on
         # REFCALL blocks, variantcaller.pyx:844) — verified by running the
@@ -467,7 +518,6 @@ def compute_vcf_info(call: WindowCall, ref_file, config: PlatypusConfig) -> Dict
         vinfo["nVarReadsPerSample"] = n_var_reads_per_sample
         vinfo["FR"][0] = "%1.4f" % vinfo["FR"][0]
         vinfo["HapScore"] = [hap_score]
-        min_quals.sort()
         if min_quals:
             vinfo["MMLQ"] = [min_quals[len(min_quals) // 2]]
         else:
@@ -590,24 +640,30 @@ def trim_left_padding(pos: int, ref: str, alts: List[str]) -> Tuple[int, str, Li
     return pos, ref, alts
 
 
-_GT_NATIVE_OK: Optional[bool] = None
+_GT_NATIVE_OK: Optional[bool] = None  # the per-sample entry passed
+_GT_BATCH_OK = False                  # and the per-position entry too
 
 
 def _native_gt_verified() -> bool:
     """First-use bit-exactness self-check of the C++ genotype kernel vs the
-    Python oracle over randomized windows (same protocol as the EM twin)."""
-    global _GT_NATIVE_OK
+    Python oracle over randomized windows (same protocol as the EM twin):
+    the per-sample entry, then the per-position one, which is used only
+    when it passes too."""
+    global _GT_NATIVE_OK, _GT_BATCH_OK
     if _GT_NATIVE_OK is None:
-        _GT_NATIVE_OK = False
+        _GT_NATIVE_OK = _GT_BATCH_OK = False
         if os.environ.get("PLATYPUS_TPU_NATIVE_GT", "1") != "0" \
                 and native.load() is not None:
             _GT_NATIVE_OK = _verify_native_gt()
-            if not _GT_NATIVE_OK:
+            _GT_BATCH_OK = _GT_NATIVE_OK and _verify_native_gt_batch()
+            if not _GT_BATCH_OK:
                 import logging
 
                 logging.getLogger("platypus_tpu").warning(
                     "native genotype kernel failed the bit-exactness "
-                    "self-check; using the Python oracle")
+                    "self-check; using %s",
+                    "it sample by sample" if _GT_NATIVE_OK
+                    else "the Python oracle")
     return _GT_NATIVE_OK
 
 
@@ -624,37 +680,108 @@ class _FakeCall:
 
 
 def _verify_native_gt() -> bool:
-    from ..ops.likelihood import genotype_index_pairs
-
     rng = np.random.default_rng(20260820)
     for _ in range(60):
-        H = int(rng.integers(1, 14))
-        I = int(rng.integers(1, 6))
-        n_vars = int(rng.integers(1, 4))
+        call, hap_is_ref, var_in_hap, n_vars, I = _random_gt_window(rng, 1, 5)
         n_ind = I if rng.random() < 0.8 else 30
-        h1, h2 = genotype_index_pairs(H)
-        G = len(h1)
-        lik = np.maximum(1e-300, rng.random((I, G)))
-        freqs = rng.random(H)
-        gof = rng.uniform(0, 50, (G, I))
-        hap_is_ref = (rng.random(H) < 0.5).astype(np.int64)
-        var_in_hap = rng.random((H, n_vars)) < 0.5
-        call = _FakeCall(lik, freqs, h1, h2, gof)
         i = int(rng.integers(0, I))
         variants = [None] * n_vars
         want = _compute_genotype_call_and_likelihoods_py(
             call, i, variants, hap_is_ref, var_in_hap, n_ind)
         got = _genotype_call_native(call, i, variants, hap_is_ref,
                                     var_in_hap, n_ind)
-        if got is None:
-            return False
-        if want[0] != got[0] or want[1] != got[1]:
-            return False
-        if np.asarray(want[2]).tobytes() != np.asarray(got[2]).tobytes():
-            return False
-        if np.asarray(want[3:]).tobytes() != np.asarray(got[3:]).tobytes():
+        if got is None or not _same_genotype_call(want, got):
             return False
     return True
+
+
+def _random_gt_window(rng, n_ind_lo: int, n_ind_hi: int):
+    """A randomized (call, hap_is_ref, var_in_hap, n_vars, I) for the
+    self-checks: n_vars 1-3, I in [n_ind_lo, n_ind_hi]."""
+    from ..ops.likelihood import genotype_index_pairs
+
+    H = int(rng.integers(1, 14))
+    I = int(rng.integers(n_ind_lo, n_ind_hi + 1))
+    n_vars = int(rng.integers(1, 4))
+    h1, h2 = genotype_index_pairs(H)
+    G = len(h1)
+    lik = np.maximum(1e-300, rng.random((I, G)))
+    freqs = rng.random(H)
+    gof = rng.uniform(0, 50, (G, I))
+    hap_is_ref = (rng.random(H) < 0.5).astype(np.int64)
+    var_in_hap = rng.random((H, n_vars)) < 0.5
+    call = _FakeCall(lik, freqs, h1, h2, gof)
+    return call, hap_is_ref, var_in_hap, n_vars, I
+
+
+def _verify_native_gt_batch() -> bool:
+    """The per-position entry against the Python oracle, sample by sample,
+    on cohorts on both sides of the n_ind > 25 frequency weighting, with
+    some samples left out as samples without reads are."""
+    rng = np.random.default_rng(20261018)
+    for trial in range(40):
+        call, hap_is_ref, var_in_hap, n_vars, I = _random_gt_window(
+            rng, *((26, 32) if trial % 4 == 0 else (1, 6)))
+        samples = [i for i in range(I) if rng.random() < 0.85]
+        got = _genotype_calls_native(
+            native.native_genotype_context(
+                call.likelihoods, call.frequencies, call.hap1_idx,
+                call.hap2_idx, call.gof, np.array(samples, np.int64), I),
+            samples, hap_is_ref, var_in_hap)
+        if got is None or sorted(got) != samples:
+            return False
+        variants = [None] * n_vars
+        for i in samples:
+            want = _compute_genotype_call_and_likelihoods_py(
+                call, i, variants, hap_is_ref, var_in_hap, I)
+            if not _same_genotype_call(want, got[i]):
+                return False
+    return True
+
+
+def _same_genotype_call(want, got) -> bool:
+    return (want[0] == got[0] and want[1] == got[1]
+            and np.asarray(want[2]).tobytes() == np.asarray(got[2]).tobytes()
+            and np.asarray(want[3:]).tobytes() == np.asarray(got[3:]).tobytes())
+
+
+def _genotype_context(call: WindowCall, samples: List[int],
+                      n_individuals: int):
+    """The window's tables prepared for the per-position native entry, to
+    call `samples`; None where it is unavailable or failed its
+    self-check."""
+    if not (_native_gt_verified() and _GT_BATCH_OK):
+        return None
+    # getattr: tests stub the `native` module out to force the Python
+    # path; the verified-flag cache must not defeat the stub.
+    fn = getattr(native, "native_genotype_context", None)
+    if fn is None:
+        return None
+    return fn(call.likelihoods, call.frequencies, call.hap1_idx,
+              call.hap2_idx, call.gof, np.array(samples, np.int64),
+              n_individuals)
+
+
+def _genotype_calls_native(ctx, samples: List[int], hap_is_ref_at_pos,
+                           var_in_hap):
+    """compute_genotype_call_and_likelihoods of the context's samples in
+    one native call: {sample: the same tuple}; None when unavailable."""
+    if ctx is None:
+        return None
+    rows = native.native_genotype_call_samples(
+        ctx, hap_is_ref_at_pos, var_in_hap).tolist()
+    n_classes = len(rows[0]) - 7
+    out = {}
+    for i in samples:
+        row = rows[i]
+        (best_likelihood, non_ref_post, ref_post, sum_lik, best_gof,
+         phased1, phased2) = row[n_classes:]
+        if sum_lik == 0:
+            sum_lik = 1.0
+        out[i] = (int(phased1), int(phased2), row[:n_classes],
+                  best_likelihood / sum_lik, non_ref_post / sum_lik,
+                  ref_post / sum_lik, best_gof)
+    return out
 
 
 def _genotype_call_native(call, sample_index, variants_this_pos,
@@ -822,6 +949,9 @@ def output_call_to_vcf(
     hap_var_sets = call.hap_var_sets
     all_variants = list(call.window.variants)
     n_written = 0
+    with metrics.timer("vcf_genotypes"):
+        called = [i for i in range(len(buffers)) if call.n_reads[i] != 0]
+        gt_ctx = _genotype_context(call, called, len(buffers)) if called else None
 
     for pos in sorted(call.vars_by_pos.keys()):
         with metrics.timer("vcf_write"):
@@ -871,6 +1001,13 @@ def output_call_to_vcf(
             max_gof = 0.0
             n_non_ref_calls = 0
         with metrics.timer("vcf_genotypes"):
+            # One native call for every sample with reads where the
+            # per-position entry is verified, else one per sample.
+            calls = _genotype_calls_native(gt_ctx, called, hap_is_ref,
+                                           var_in_hap)
+            if calls is not None:
+                metrics.count("vcf_native_calls")
+                metrics.count("vcf_native_rows", len(called))
             for i, buf in enumerate(buffers):
                 sample = buf.sample
                 if call.n_reads[i] == 0:
@@ -881,9 +1018,9 @@ def output_call_to_vcf(
                 (
                     index1, index2, likelihoods, genotype_post, non_ref_post,
                     ref_post, gof_value,
-                ) = compute_genotype_call_and_likelihoods(
-                    call, i, variants, hap_is_ref, var_in_hap, len(buffers)
-                )
+                ) = calls[i] if calls is not None else (
+                    compute_genotype_call_and_likelihoods(
+                        call, i, variants, hap_is_ref, var_in_hap, len(buffers)))
                 if not (index1 == 0 and index2 == 0):
                     n_non_ref_calls += 1
                 gt = [str(index1), "/", str(index2)]
