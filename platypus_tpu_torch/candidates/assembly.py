@@ -28,6 +28,7 @@ import os
 import numpy as np
 
 from ..config import PlatypusConfig
+from ..utils.observability import GLOBAL_METRICS as metrics
 from .variant import ASSEMBLER_VAR, Variant
 
 REF = 1
@@ -206,8 +207,9 @@ def assemble_reads_and_detect_variants(
     chrom: str, assem_start: int, assem_end: int, ref_start: int,
     ref_seq: bytes, buffers, config: PlatypusConfig,
     use_native: bool = True,
-) -> List[Variant]:
-    """assembler.pyx:1429-1476 for one tile.  Uses the C++ graph when built
+) -> Tuple[List[Variant], int]:
+    """assembler.pyx:1429-1476 for one tile: its variants, and the graphs
+    rebuilt with k += 5 after a cycle.  Uses the C++ graph when built
     (same semantics; this module is the parity oracle)."""
     from ..native import NativeAssembler
 
@@ -241,11 +243,13 @@ def assemble_reads_and_detect_variants(
         return g
 
     graph = build(kmer_size)
+    retries = 0
     if config.no_cycles:
         while (graph.detect_cycles() if native else detect_cycles(graph)):
             if kmer_size > 50:
-                return []
+                return [], retries
             kmer_size += 5
+            retries += 1
             graph = build(kmer_size)
 
     if native:
@@ -256,7 +260,7 @@ def assemble_reads_and_detect_variants(
     else:
         variants = find_bubbles(graph, min_weight, ref_seq, chrom, ref_start,
                                 assem_start, assem_end)
-    return sorted(variants, key=lambda v: v.sort_key())
+    return sorted(variants, key=lambda v: v.sort_key()), retries
 
 
 def need_to_assemble(buffers, assem_start: int, assem_end: int,
@@ -281,8 +285,9 @@ def need_to_assemble(buffers, assem_start: int, assem_end: int,
 
 
 def _native_region_tiles(chrom: str, tiles, buffers, config: PlatypusConfig,
-                         n_threads: int) -> Optional[List[Variant]]:
-    """One native call for the whole tile loop; None → use the Python path.
+                         n_threads: int):
+    """One native call for the whole tile loop: (variants, cycle retries),
+    or None → use the Python path.
 
     Matches the sequential path exactly: same per-(tile, pile) read-row
     slices, same per-tile variant discovery order, same per-tile sort."""
@@ -327,12 +332,13 @@ def _native_region_tiles(chrom: str, tiles, buffers, config: PlatypusConfig,
     )
     if raw is None:
         return None
+    per_tile, retries = raw
     out: List[Variant] = []
-    for tile_vars in raw:
+    for tile_vars in per_tile:
         vs = [Variant(chrom, pos, removed, added, 0, ASSEMBLER_VAR)
               for pos, removed, added in tile_vars]
         out.extend(sorted(vs, key=lambda v: v.sort_key()))
-    return out
+    return out, retries
 
 
 def assemble_region_variants(chrom: str, start: int, end: int, ref_file,
@@ -345,7 +351,9 @@ def assemble_region_variants(chrom: str, start: int, end: int, ref_file,
     Python path keeps a small thread pool as fallback.  Reference-sequence
     fetches and the assembly gate stay on the calling thread (the FASTA
     cache is not thread-safe), and results are concatenated in tile order,
-    so output is deterministic either way.
+    so output is deterministic either way.  Counts the tiles assembled
+    (`assembly_tiles`), the variants they gave (`assembly_variants`) and
+    the graphs rebuilt with k += 5 after a cycle (`assembly_kmer_retries`).
     """
     from concurrent.futures import ThreadPoolExecutor
 
@@ -365,22 +373,23 @@ def assemble_region_variants(chrom: str, start: int, end: int, ref_file,
     budget = int(os.environ.get("PLATYPUS_TPU_WORKER_THREADS", "0")) or (os.cpu_count() or 1)
     n_workers = min(4, len(tiles), budget)
 
-    native_out = _native_region_tiles(chrom, tiles, buffers, config, n_workers)
-    if native_out is not None:
-        return native_out
+    done = _native_region_tiles(chrom, tiles, buffers, config, n_workers)
+    if done is None:
+        def run_tile(t):
+            assem_start, assem_end, ref_start, ref_seq = t
+            return assemble_reads_and_detect_variants(
+                chrom, assem_start, assem_end, ref_start, ref_seq, buffers,
+                config)
 
-    def run_tile(t):
-        assem_start, assem_end, ref_start, ref_seq = t
-        return assemble_reads_and_detect_variants(
-            chrom, assem_start, assem_end, ref_start, ref_seq, buffers, config
-        )
-
-    out: List[Variant] = []
-    if n_workers <= 1:
-        for t in tiles:
-            out.extend(run_tile(t))
-    else:
-        with ThreadPoolExecutor(max_workers=n_workers) as pool:
-            for res in pool.map(run_tile, tiles):
-                out.extend(res)
+        if n_workers <= 1:
+            per_tile = [run_tile(t) for t in tiles]
+        else:
+            with ThreadPoolExecutor(max_workers=n_workers) as pool:
+                per_tile = list(pool.map(run_tile, tiles))
+        done = ([v for vs, _r in per_tile for v in vs],
+                sum(r for _vs, r in per_tile))
+    out, retries = done
+    metrics.count("assembly_tiles", len(tiles))
+    metrics.count("assembly_variants", len(out))
+    metrics.count("assembly_kmer_retries", retries)
     return out

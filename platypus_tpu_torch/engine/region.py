@@ -278,9 +278,9 @@ def generate_variants_in_region(
     if config.assemble:
         from ..candidates.assembly import assemble_region_variants
 
-        assembler_variants.extend(
-            assemble_region_variants(chrom, start, end, ref_file, buffers, config)
-        )
+        with metrics.timer("assembly"):
+            assembler_variants.extend(assemble_region_variants(
+                chrom, start, end, ref_file, buffers, config))
 
     all_cands = raw_bam_variants + vcf_file_variants + assembler_variants
     left_norm = sorted(

@@ -894,7 +894,7 @@ def _setup_asm_region(lib) -> bool:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.ptpu_asm_region_packed_size.restype = ctypes.c_int64
     lib.ptpu_asm_region_packed_size.argtypes = [ctypes.c_void_p]
@@ -915,8 +915,9 @@ def native_assemble_region(tiles, piles, kmer_size: int, min_qual: int,
     piles: list of ReadSet-like objects (seq [N,L] u8, qual [N,L] u8,
            rlen i32-able, qc_fail bool [N])
     slices: int64 [n_tiles, n_piles, 2] row bounds per (tile, pile)
-    Returns a list of per-tile lists of (pos, removed, added), in tile order
-    (discovery order within a tile), or None when the native lib is absent
+    Returns (per-tile lists of (pos, removed, added) in tile order, in
+    discovery order within a tile; the graphs rebuilt with k += 5 after a
+    cycle, summed over the tiles), or None when the native lib is absent
     or predates the region entry (stale .so).
     """
     lib = load()
@@ -948,12 +949,14 @@ def native_assemble_region(tiles, piles, kmer_size: int, min_qual: int,
         qc_ptrs[p] = qc.ctypes.data
     slices = np.ascontiguousarray(slices, dtype=np.int64)
     counts = np.zeros(n_tiles, np.int64)
+    retries = np.zeros(n_tiles, np.int64)
     h = lib.ptpu_asm_region(
         kmer_size, min_qual, ctypes.c_double(min_weight), no_cycles,
         n_threads, region_ref, n_tiles,
         _np_ptr(ta), _np_ptr(tb), _np_ptr(trs), _np_ptr(toff), _np_ptr(tlen),
         n_piles, _np_ptr(seq_ptrs), _np_ptr(qual_ptrs), _np_ptr(strides),
         _np_ptr(rlen_ptrs), _np_ptr(qc_ptrs), _np_ptr(slices), _np_ptr(counts),
+        _np_ptr(retries),
     )
     del keep
     try:
@@ -973,7 +976,7 @@ def native_assemble_region(tiles, piles, kmer_size: int, min_qual: int,
                     removed, added = blob.split(b"\x00")[:2]
                     out[t].append((int(pos[i]), removed, added))
                     i += 1
-        return out
+        return out, int(retries.sum())
     finally:
         lib.ptpu_asm_region_free(h)
 

@@ -428,13 +428,16 @@ struct PileView {
 };
 
 // One tile: build graph (with cycle k-escalation), find bubbles.
-// Mirrors assembly.py::assemble_reads_and_detect_variants.
+// Mirrors assembly.py::assemble_reads_and_detect_variants.  `retries`
+// counts the graphs rebuilt with k += 5 after a cycle.
 std::vector<VariantOut> run_region_tile(
     int kmer_size, int32_t min_qual, double min_weight, int32_t no_cycles,
     const char* ref_seq, int64_t ref_len, int64_t ref_start,
     int64_t assem_start, int64_t assem_end,
-    const std::vector<PileView>& piles, const int64_t* slice_bounds) {
+    const std::vector<PileView>& piles, const int64_t* slice_bounds,
+    int64_t& retries) {
     int k = kmer_size;
+    retries = 0;
     for (;;) {
         AsmHandle h;
         h.graph.kmer_size = k;
@@ -452,6 +455,7 @@ std::vector<VariantOut> run_region_tile(
         if (no_cycles && ptpu_asm_detect_cycles(&h)) {
             if (k > 50) return {};
             k += 5;
+            retries++;
             continue;
         }
         ptpu_asm_find_bubbles(&h, min_weight, ref_seq, ref_len, ref_start,
@@ -465,7 +469,9 @@ std::vector<VariantOut> run_region_tile(
 extern "C" {
 
 // slices layout: [n_tiles][n_piles][2] (start, stop) row bounds per pile.
-// Pointer arrays are passed as uint64 addresses (one per pile).
+// Pointer arrays are passed as uint64 addresses (one per pile).  Per tile,
+// tile_counts_out gets its variant count and tile_retries_out the graphs
+// it rebuilt with a larger k after a cycle.
 RegionHandle* ptpu_asm_region(
     int32_t kmer_size, int32_t min_qual, double min_weight, int32_t no_cycles,
     int32_t n_threads, const char* region_ref, int64_t n_tiles,
@@ -474,7 +480,8 @@ RegionHandle* ptpu_asm_region(
     const int64_t* ref_len, int64_t n_piles, const uint64_t* seq_ptrs,
     const uint64_t* qual_ptrs, const int64_t* seq_strides,
     const uint64_t* rlen_ptrs, const uint64_t* qcfail_ptrs,
-    const int64_t* slices, int64_t* tile_counts_out) {
+    const int64_t* slices, int64_t* tile_counts_out,
+    int64_t* tile_retries_out) {
     std::vector<PileView> piles((size_t)n_piles);
     for (int64_t p = 0; p < n_piles; p++) {
         piles[p] = PileView{
@@ -496,7 +503,7 @@ RegionHandle* ptpu_asm_region(
                 kmer_size, min_qual, min_weight, no_cycles,
                 region_ref + ref_off[t], ref_len[t], ref_start_coord[t],
                 assem_start[t], assem_end[t], piles,
-                slices + t * n_piles * 2);
+                slices + t * n_piles * 2, tile_retries_out[t]);
         }
     };
     int nt = std::max(1, std::min<int>(n_threads, (int)n_tiles));

@@ -212,6 +212,46 @@ def test_one_region_is_covered_by_its_spans(tmp_path, region_data):
                                  abs=1)
 
 
+def test_assembly_nests_under_candidate_generation(tmp_path, region_data,
+                                                  monkeypatch):
+    """With --assemble=1 (and --noCycles=1) the tile loop runs inside the
+    span assembly, itself inside candidate_generation; assembly_tiles,
+    assembly_variants and assembly_kmer_retries count the tiles the
+    native call assembled, the variants it returned and its graphs built
+    again after a cycle."""
+    from platypus_tpu_torch import native
+    from platypus_tpu_torch.candidates import assembly
+
+    seen = {}
+    region_call = native.native_assemble_region
+    tile_loop = assembly.assemble_region_variants
+
+    def native_call(tiles, *args):
+        out = region_call(tiles, *args)
+        seen.update(tiles=len(tiles), variants=sum(map(len, out[0])),
+                    retries=out[1])
+        return out
+
+    def spanned(*args):
+        stack = GLOBAL_METRICS._stacks[threading.get_ident()]
+        seen["spans"] = [span.name for span in stack]
+        return tile_loop(*args)
+
+    monkeypatch.setattr(native, "native_assemble_region", native_call)
+    monkeypatch.setattr(assembly, "assemble_region_variants", spanned)
+    snap, _wall, _inferred = _run_region(tmp_path, region_data,
+                                         device_inference=1, assemble=1,
+                                         no_cycles=1)
+    assert seen["spans"][-3:] == ["region_prepare", "candidate_generation",
+                                  "assembly"]
+    timers, counters = snap["timers"], snap["counters"]
+    assert 0 < timers["assembly"] < timers["candidate_generation"]
+    assert seen["tiles"] == len(range(*REGION[1:], 750))
+    assert counters["assembly_tiles"] == seen["tiles"]
+    assert counters["assembly_variants"] == seen["variants"] > 0
+    assert counters["assembly_kmer_retries"] == seen["retries"]
+
+
 def test_mesh_region_times_its_phases(tmp_path, region_data):
     """With --meshDevices=8 on the CPU the region's mesh step is timed as
     mesh_pack_launch, mesh_fetch and mesh_unpack, and its fetch counts
@@ -301,7 +341,8 @@ def _context(timers):
     ("haplotypes_s_per_mreads", "haplotypes"),
     ("window_call_s_per_mreads", "window_call"),
     ("vcf_annotate_s_per_mreads", "vcf_annotate"),
-    ("vcf_genotypes_s_per_mreads", "vcf_genotypes")])
+    ("vcf_genotypes_s_per_mreads", "vcf_genotypes"),
+    ("assembly_s_per_mreads", "assembly")])
 def test_span_readers(program_metrics, metric, span):
     """A span's total seconds over millions of reads; None where the
     program has no such span."""
@@ -335,3 +376,12 @@ def test_counter_readers(program_metrics):
     program_metrics.count("device_windows_to_host", 3)
     assert _read("em_iters_per_window", ctx) == 7.5
     assert _read("f64_guard_share", ctx) == 7.5
+
+
+def test_assembly_ms_per_tile_reader(program_metrics):
+    """The assembly span's milliseconds over assembly_tiles; None without
+    the counter or without the span."""
+    assert _read("assembly_ms_per_tile", _context({"assembly": 0.5})) is None
+    program_metrics.count("assembly_tiles", 200)
+    assert _read("assembly_ms_per_tile", _context({"assembly": 0.5})) == 2.5
+    assert _read("assembly_ms_per_tile", _context({})) is None
