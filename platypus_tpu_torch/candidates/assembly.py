@@ -341,6 +341,20 @@ def _native_region_tiles(chrom: str, tiles, buffers, config: PlatypusConfig,
     return out, retries
 
 
+def tile_sequences(ref_file, chrom: str, spans) -> List[bytes]:
+    """ref_file.get_sequence(chrom, a, b) for each (a, b) of `spans`, from
+    one read over their union: each slice clamps as get_sequence does (a
+    to 0, b to the contig's length - 1, empty where b <= a)."""
+    last = ref_file.refs[chrom].length - 1
+    lo = max(0, min(a for a, _b in spans))
+    seq = ref_file.get_sequence(chrom, lo, max(b for _a, b in spans))
+    out = []
+    for a, b in spans:
+        a, b = max(0, a), min(b, last)
+        out.append(seq[a - lo:b - lo] if b > a else b"")
+    return out
+
+
 def assemble_region_variants(chrom: str, start: int, end: int, ref_file,
                              buffers, config: PlatypusConfig) -> List[Variant]:
     """Tile loop over a region (variantcaller.pyx:496-519).
@@ -348,27 +362,32 @@ def assemble_region_variants(chrom: str, start: int, end: int, ref_file,
     Tiles are independent de Bruijn graphs.  When the native library is
     built, the WHOLE tile loop runs in one ctypes call — C++ fans tiles
     out over its own thread pool with zero per-tile Python glue.  The
-    Python path keeps a small thread pool as fallback.  Reference-sequence
-    fetches and the assembly gate stay on the calling thread (the FASTA
-    cache is not thread-safe), and results are concatenated in tile order,
-    so output is deterministic either way.  Counts the tiles assembled
-    (`assembly_tiles`), the variants they gave (`assembly_variants`) and
-    the graphs rebuilt with k += 5 after a cycle (`assembly_kmer_retries`).
+    Python path keeps a small thread pool as fallback.  The assembly gate
+    runs on the calling thread, and the tiles' reference slices come from
+    one get_sequence over their span (tile_sequences): FastaFile reads are
+    safe from any thread, and a span outside the region cache is one disk
+    read, not one a tile.  Results are concatenated in tile order, so
+    output is deterministic either way.  The calling thread is the
+    pipeline's, or the prefetch helper's (engine/region.RegionPrefetch)
+    under --assemble=1.  Counts the tiles assembled (`assembly_tiles`),
+    the variants they gave (`assembly_variants`) and the graphs rebuilt
+    with k += 5 after a cycle (`assembly_kmer_retries`).
     """
     from concurrent.futures import ThreadPoolExecutor
 
     shift = max(100, min(1000, config.assembly_region_size // 2))
-    tiles = []
+    spans = []
     for assem_start in range(start, end, shift):
         assem_end = min(assem_start + config.assembly_region_size, end)
         ref_start = max(0, assem_start - config.assembly_region_size)
         ref_end = assem_end + config.assembly_region_size
-        if not need_to_assemble(buffers, assem_start, assem_end, config):
-            continue
-        ref_seq = ref_file.get_sequence(chrom, ref_start, ref_end)
-        tiles.append((assem_start, assem_end, ref_start, ref_seq))
-    if not tiles:
+        if need_to_assemble(buffers, assem_start, assem_end, config):
+            spans.append((assem_start, assem_end, ref_start, ref_end))
+    if not spans:
         return []
+    seqs = tile_sequences(ref_file, chrom,
+                          [(r0, r1) for _a, _b, r0, r1 in spans])
+    tiles = [(a, b, r0, seq) for (a, b, r0, _r1), seq in zip(spans, seqs)]
 
     budget = int(os.environ.get("PLATYPUS_TPU_WORKER_THREADS", "0")) or (os.cpu_count() or 1)
     n_workers = min(4, len(tiles), budget)

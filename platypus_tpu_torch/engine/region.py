@@ -222,8 +222,13 @@ def generate_variants_in_region(
     buffers: Sequence[SampleReadBuffer],
     config: PlatypusConfig,
     rt: RuntimeState,
+    assembled: Optional[List[Variant]] = None,
 ) -> List[Variant]:
-    """Candidate generation for one region (variantcaller.pyx:412-527)."""
+    """Candidate generation for one region (variantcaller.pyx:412-527).
+
+    With --assemble=1, `assembled` holds the region's assembler variants
+    when the prefetch helper made them (RegionPrefetch); None assembles
+    them here."""
     raw_bam_variants: List[Variant] = []
     vcf_file_variants: List[Variant] = []
     assembler_variants: List[Variant] = []
@@ -276,11 +281,15 @@ def generate_variants_in_region(
         vcf_file_variants.extend(reader.variants(chrom, start, end))
 
     if config.assemble:
-        from ..candidates.assembly import assemble_region_variants
+        if assembled is None:
+            from ..candidates.assembly import assemble_region_variants
 
-        with metrics.timer("assembly"):
-            assembler_variants.extend(assemble_region_variants(
-                chrom, start, end, ref_file, buffers, config))
+            with metrics.timer("assembly"):
+                assembled = assemble_region_variants(chrom, start, end,
+                                                     ref_file, buffers, config)
+        else:
+            metrics.count("assembly_prefetched")
+        assembler_variants.extend(assembled)
 
     all_cands = raw_bam_variants + vcf_file_variants + assembler_variants
     left_norm = sorted(
@@ -335,14 +344,20 @@ def call_variants_in_region(
 
 
 class RegionPrefetch:
-    """BAM decode for the NEXT region running on a helper thread.
+    """The NEXT region's BAM decode, and with --assemble=1 its local
+    assembly, on a helper thread.
 
-    The native reader releases the GIL for the whole fetch, so region k+1's
-    BGZF inflate + record decode genuinely overlaps region k's window prep
-    and device waits.  The runner guarantees the thread is the only BAM
-    user while it runs (it joins before any other fetch)."""
+    The native reader releases the GIL for the whole fetch, and the native
+    assembler for its whole tile loop, so region k+1's decode and assembly
+    genuinely overlap region k's host work and device waits.  The assembly
+    is the span `assembly` beside `bam_decode`, not inside it; it reads the
+    reference through `ref_file`'s get_sequence, which is safe beside the
+    pipeline's own reads (io/fasta.py), and never sets its region cache.
+    The runner guarantees the thread is the only BAM user while it runs
+    (it joins before any other fetch)."""
 
-    def __init__(self, bam_files, samples_by_bam, chrom, start, end, config):
+    def __init__(self, bam_files, samples_by_bam, chrom, start, end, config,
+                 ref_file):
         import threading
 
         self.chrom, self.start, self.end = chrom, start, end
@@ -350,8 +365,15 @@ class RegionPrefetch:
 
         def work():
             try:
-                self._box["buffers"] = load_region_buffers(
+                buffers = self._box["buffers"] = load_region_buffers(
                     bam_files, samples_by_bam, chrom, start, end, config)
+                if config.assemble and buffers is not None:
+                    from ..candidates.assembly import assemble_region_variants
+
+                    with metrics.timer("assembly",
+                                       region=f"{chrom}:{start}-{end}"):
+                        self._box["assembled"] = assemble_region_variants(
+                            chrom, start, end, ref_file, buffers, config)
             except BaseException as exc:  # noqa: BLE001 — re-raised in result()
                 self._box["exc"] = exc
 
@@ -365,10 +387,12 @@ class RegionPrefetch:
         self._thread.join()
 
     def result(self):
+        """(buffers, assembler variants or None), once the thread ends;
+        what the thread raised is raised here."""
         self._thread.join()
         if "exc" in self._box:
             raise self._box["exc"]
-        return self._box["buffers"]
+        return self._box["buffers"], self._box.get("assembled")
 
 
 def prepare_region_call(
@@ -402,8 +426,9 @@ def prepare_region_call(
             with metrics.timer("region_load"):
                 if preloaded is not None and preloaded.matches(chrom, start,
                                                                end):
-                    buffers = preloaded.result()
+                    buffers, assembled = preloaded.result()
                 else:
+                    assembled = None
                     buffers = load_region_buffers(bam_files, samples_by_bam,
                                                   chrom, start, end, config)
         except Exception as exc:  # noqa: BLE001 — region-level crash containment
@@ -423,7 +448,8 @@ def prepare_region_call(
                             len(buf.broken), buf.filter_counts)
         with metrics.timer("candidate_generation"):
             variants = generate_variants_in_region(chrom, start, end, ref_file,
-                                                   buffers, config, rt)
+                                                   buffers, config, rt,
+                                                   assembled=assembled)
         # Re-cache with the updated read length.
         if rt.rlen != rlen0:
             _cache_reference(ref_file, chrom, start - 10 * rt.rlen,

@@ -191,6 +191,16 @@ def run_single_process(
     `on_region_done(region)` is called once per region, after its lines
     are flushed or once it was skipped (runner.py:227-237).
 
+    The next region's BAM decode runs on a helper thread
+    (engine/region.RegionPrefetch), started once region k is prepared, so
+    that it overlaps the stage.  With --assemble=1 the helper also runs
+    that region's local assembly, and it starts before prepare(k), as soon
+    as region k's reads and assembly are in hand: the pipeline thread
+    waits for them in `region_load` and takes both from the helper
+    (counted as `assembly_prefetched`).  The first region loads and
+    assembles inline.  Either way the source is asked for at most one
+    region ahead, and the helper is the only BAM user while it runs.
+
     Begin (k-1) and finish (k-2) run inline, after region k is prepared,
     unless PLATYPUS_TPU_INFER_THREAD=1 (runner.py:199-218): then they run
     as one stage on a `ptpu-infer` helper thread while this thread
@@ -285,6 +295,15 @@ def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
     staged = None     # the stage of the regions before it (a Future)
     prefetch = None   # next region's BAM decode on a helper thread
 
+    def start_prefetch(region):
+        if region is None:
+            return None
+        # Starting the thread hands it the interpreter lock, which this
+        # thread may wait for: timed as prefetch_start.
+        with metrics.timer("prefetch_start"):
+            return RegionPrefetch(bam_files, samples_by_bam, *region, config,
+                                  ref_file)
+
     def staged_result():
         """Wait for the stage in flight; returns the region it began."""
         nonlocal n_written, staged
@@ -302,16 +321,28 @@ def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
                                    done)
         # One-region lookahead, so the BAM prefetch has a target: a worker
         # claims at most one region ahead of the one it is preparing.
+        # With --assemble=1 the helper also assembles its region, more
+        # than the stage alone can hide, so region k+1's helper starts as
+        # soon as region k's reads are in hand, before prepare(k); the
+        # first region loads and assembles inline.
         cur = next(region_iter, None)
         index = 0
         while cur is not None:
             chrom, start, end = cur
             if index % 10 == 0:
                 logger.info("Processing region %s:%s-%s", chrom, start, end)
+            loaded = prefetch  # cur's helper, if it has one
+            early = loaded is not None and bool(config.assemble)
+            if early:
+                with metrics.timer("region_load",
+                                   region=f"{chrom}:{start}-{end}"):
+                    loaded.join()  # the wait for cur's reads and assembly
+                nxt = next(region_iter, None)
+                prefetch = start_prefetch(nxt)
             try:
                 state = prepare_region_call(chrom, start, end, bam_files,
                                             samples_by_bam, ref_file, config,
-                                            rt, device, preloaded=prefetch)
+                                            rt, device, preloaded=loaded)
             except DeviceError:
                 raise
             except Exception:  # noqa: BLE001 — region crash containment
@@ -320,16 +351,11 @@ def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
                 state = None
             if state is None:
                 done(cur)  # skipped: no output will come
-            if prefetch is not None:
-                prefetch.join()  # never leave the helper running into a fetch
-                prefetch = None
-            nxt = next(region_iter, None)
-            if nxt is not None:
-                # Starting the thread hands it the interpreter lock, which
-                # this thread may wait for: timed as prefetch_start.
-                with metrics.timer("prefetch_start"):
-                    prefetch = RegionPrefetch(bam_files, samples_by_bam,
-                                              *nxt, config)
+            if not early:
+                if prefetch is not None:
+                    prefetch.join()  # never leave the helper running into a fetch
+                nxt = next(region_iter, None)
+                prefetch = start_prefetch(nxt)
             staged = submit(aligning, staged_result())
             aligning = state
             cur = nxt

@@ -60,11 +60,11 @@ class FastaFile:
                 )
         self._fh = open(filename, "rb")
         self._cache: Optional[Tuple[str, int, int, bytes]] = None  # (name, start, end, seq)
-        # The engine reads reference sequence from two threads (the region
-        # pipeline's prepare on the main thread, its begin/finish on the
-        # inference thread): the seek+read pair must be atomic.  The cache
-        # itself is safe lock-free — readers snapshot the tuple, writers
-        # replace it whole.
+        # The engine reads reference sequence from several threads (the
+        # region pipeline's prepare on the main thread, its begin/finish on
+        # the inference thread, the local assembly on the prefetch helper):
+        # the seek+read pair must be atomic.  The cache itself is safe
+        # lock-free — readers snapshot the tuple, writers replace it whole.
         self._io_lock = threading.Lock()
 
     def close(self) -> None:
@@ -117,8 +117,9 @@ class FastaFile:
         end = min(end, entry.length - 1)
         if end <= start:
             return b""
-        if self._cache is not None:
-            cname, cstart, cend, cseq = self._cache
+        cache = self._cache  # one read: another thread may replace it
+        if cache is not None:
+            cname, cstart, cend, cseq = cache
             if cname == name and start >= cstart and end <= cend:
                 return cseq[start - cstart : end - cstart]
         return self._read_raw(entry, start, end)
