@@ -8,7 +8,8 @@ without either it exits non-zero before printing any result.  Every port
 CLI that runs in a fresh interpreter does so under a sitecustomize.py
 (BLOCKER) that makes `import platypus_tpu` and `import jax` raise, in
 that process and in every process it spawns; the port imports nothing of
-the JAX package.  Phases:
+the JAX package.  Phases (numbered as the failure messages name them;
+there is no phase 16):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel library of align_cuda.KERNELS -- K1, the
@@ -120,13 +121,6 @@ the JAX package.  Phases:
 15. distributed: --distributed=1 as two fresh processes under torchrun's
    environment (gloo; rank r on cuda:{r % cards}) over the slice, merged
    byte-identical to the reference;
-16. infer thread: the slice in this process four times, in turns inline,
-   PLATYPUS_TPU_INFER_THREAD=1 (begin and finish on the ptpu-infer
-   thread), the thread, inline, each launching K1 and the fused
-   inference kernel, with each wall and its
-   device_inference, device_alignment and window_finish; then a fresh
-   port CLI with the thread that reports its launches; all five
-   byte-identical to phase 5's reference;
 17. trace: one 100 kb region of the slice in this process inside
    observability.trace("slice_region") with PLATYPUS_TPU_TRACE_DIR set,
    byte-identical to the reference on that region; the *.pt.trace.json it
@@ -1857,55 +1851,6 @@ def scoped_env(name, value):
             os.environ[name] = old
 
 
-def check_infer_thread(info, region, smi):
-    """Phase 16: the slice in this process with PLATYPUS_TPU_INFER_THREAD
-    in turns 0, 1, 1, 0 (inline; begin and finish on the ptpu-infer
-    thread), each run's K1 launches counted from zero, then one fresh port
-    CLI with the thread under BLOCKER; every run's data lines equal phase
-    5's reference's.  Prints each wall with its device_inference,
-    device_alignment and window_finish (host-clock stage timers, which in
-    thread mode overlap prepare on the other thread)."""
-    from platypus_tpu_torch.engine.region import metrics
-
-    workdir = info["workdir"]
-    runs, outs = [], []
-    for k, mode in enumerate(("0", "1", "1", "0")):
-        out = os.path.join(workdir, f"port_thread_{k}.vcf")
-        with scoped_env("PLATYPUS_TPU_INFER_THREAD", mode):
-            wall, counts = run_port(cli_args(info, region, out))
-        if counts["band_align"] <= 0 or counts["infer_window"] <= 0:
-            raise AssertionError(f"infer thread: run {k} (mode {mode}) "
-                                 f"launched no K1 or no infer_window: {counts}")
-        timers = {name: metrics.timers[name] for name in (
-            "device_inference", "device_alignment", "window_finish")}
-        runs.append((mode, wall, counts["band_align"], timers))
-        outs.append(out)
-    cli_out = os.path.join(workdir, "port_cli_thread.vcf")
-    t0 = time.perf_counter()
-    proc = run_child([sys.executable, "-c", COUNTED_CLI,
-                      *cli_args(info, region, cli_out)], cwd=REPO,
-                     env=port_env(PLATYPUS_TPU_INFER_THREAD="1"), timeout=900)
-    cli_wall = time.perf_counter() - t0
-    cli_launches, _ = counted_result(proc, f"{cli_out}.log")
-    if cli_launches["band_align"] <= 0 or cli_launches["infer_window"] <= 0:
-        raise AssertionError(f"infer thread: the fresh CLI launched no K1 or "
-                             f"no infer_window: {cli_launches}")
-    n_lines = check_same_calls("infer thread", os.path.join(
-        workdir, "reference.vcf"), *outs, cli_out)
-    mean = {mode: statistics.mean(wall for m, wall, _, _ in runs if m == mode)
-            for mode in ("0", "1")}
-    print(f"infer thread: slice on {smi} in this process, in turns: "
-          + "; ".join(
-              f"{'thread' if mode == '1' else 'inline'} {wall:.6f} s ({n} K1 "
-              f"launches, " + ", ".join(f"{name} {t:.6f} s"
-                                        for name, t in timers.items()) + ")"
-              for mode, wall, n, timers in runs)
-          + f"; thread / inline mean wall {mean['1'] / mean['0']:.4f}; fresh "
-          f"port CLI with the thread {cli_wall:.6f} s ({cli_launches['band_align']}"
-          f" K1 launches); {n_lines} VCF data lines byte-identical to the "
-          f"reference in all five runs", flush=True)
-
-
 def trace_summary(path, symbols):
     """The numbers of a torch.profiler Chrome trace: its window (first
     event's start to last event's end), the device-busy time (the union of
@@ -2346,10 +2291,7 @@ def main() -> int:
         check(*check_args)
         errors.check(label)
 
-    # the inference thread, a profiler trace of one region, the cohorts
-    start_phase("16 (infer thread)")
-    check_infer_thread(info, region, smi)
-    errors.check("infer thread")
+    # a profiler trace of one region, the cohorts
     start_phase("17 (trace)")
     check_trace(info, smi)
     errors.check("trace")

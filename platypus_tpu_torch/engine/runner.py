@@ -53,9 +53,7 @@ import os
 import re
 import signal
 import sys
-import threading
 import time
-from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..config import PlatypusConfig, derive_runtime
@@ -201,14 +199,8 @@ def run_single_process(
     assembles inline.  Either way the source is asked for at most one
     region ahead, and the helper is the only BAM user while it runs.
 
-    Begin (k-1) and finish (k-2) run inline, after region k is prepared,
-    unless PLATYPUS_TPU_INFER_THREAD=1 (runner.py:199-218): then they run
-    as one stage on a `ptpu-infer` helper thread while this thread
-    prepares region k+1, each stage waited for before the next is
-    submitted, so writes stay in region order.  The stage's finish reads
-    its own FastaFile, so it does not evict the region cache that
-    prepare slices from.  A DeviceError raised on the thread leaves
-    through the stage's result here and stops the run.
+    Begin (k-1) and finish (k-2) run on this thread, in that order, once
+    region k is prepared; the prefetch helper is the only other thread.
 
     The call is the `run` span, which marks this thread as the pipeline
     thread of utils/observability.Metrics."""
@@ -233,24 +225,11 @@ def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
         if not append:
             writer.write_header()
 
-    executor = None
-    finish_ref = ref_file
-    if (not config.hla_typing
-            and os.environ.get("PLATYPUS_TPU_INFER_THREAD", "0") == "1"):
-        executor = ThreadPoolExecutor(max_workers=1,
-                                      thread_name_prefix="ptpu-infer")
-        finish_ref = FastaFile(config.ref_file,
-                               parse_ncbi=bool(config.parse_ncbi))
-    # With the helper thread, a skipped region's `done` (this thread) may
-    # meet a finished region's (the helper): the callbacks run one at a time.
-    done_lock = threading.Lock()
-
     def done(region) -> None:
         if on_region_done is not None:
-            with done_lock:
-                with metrics.timer("vcf_flush"):
-                    out.flush()  # the region's lines are durable first
-                on_region_done(tuple(region))
+            with metrics.timer("vcf_flush"):
+                out.flush()  # the region's lines are durable first
+            on_region_done(tuple(region))
 
     def begin(state) -> bool:
         try:
@@ -266,7 +245,7 @@ def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
 
     def finish(state) -> int:
         try:
-            n = finish_region_call(state, finish_ref, config, writer, device)
+            n = finish_region_call(state, ref_file, config, writer, device)
         except DeviceError:
             raise
         except Exception:  # noqa: BLE001 — region crash containment
@@ -282,17 +261,10 @@ def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
         begun = aligning if aligning is not None and begin(aligning) else None
         return begun, finish(inferring) if inferring is not None else 0
 
-    def submit(aligning, inferring) -> Future:
-        if executor is not None:
-            return executor.submit(stage, aligning, inferring)
-        future = Future()
-        future.set_result(stage(aligning, inferring))
-        return future
-
     region_iter = iter(regions)
     n_written = 0
     aligning = None   # PreparedRegion whose alignments are in flight
-    staged = None     # the stage of the regions before it (a Future)
+    inferring = None  # the region before it, whose inference is in flight
     prefetch = None   # next region's BAM decode on a helper thread
 
     def start_prefetch(region):
@@ -303,16 +275,6 @@ def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
         with metrics.timer("prefetch_start"):
             return RegionPrefetch(bam_files, samples_by_bam, *region, config,
                                   ref_file)
-
-    def staged_result():
-        """Wait for the stage in flight; returns the region it began."""
-        nonlocal n_written, staged
-        if staged is None:
-            return None
-        begun, n = staged.result()
-        staged = None
-        n_written += n
-        return begun
 
     try:
         if config.hla_typing:
@@ -356,11 +318,11 @@ def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
                     prefetch.join()  # never leave the helper running into a fetch
                 nxt = next(region_iter, None)
                 prefetch = start_prefetch(nxt)
-            staged = submit(aligning, staged_result())
+            inferring, n = stage(aligning, inferring)
+            n_written += n
             aligning = state
             cur = nxt
             index += 1
-        inferring = staged_result()
         if inferring is not None:
             n_written += finish(inferring)
         if aligning is not None and begin(aligning):
@@ -369,11 +331,6 @@ def _run_regions(config: PlatypusConfig, regions, output_path: str, device,
         with metrics.timer("run_close"):
             if prefetch is not None:
                 prefetch.join()
-            if executor is not None:
-                # A stage still running (this thread raised) ends before
-                # the output closes; none waiting starts.
-                executor.shutdown(wait=True, cancel_futures=True)
-                finish_ref.close()
             if output_path != "-":
                 out.close()
             for bam in bam_files:

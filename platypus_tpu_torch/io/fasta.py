@@ -60,11 +60,11 @@ class FastaFile:
                 )
         self._fh = open(filename, "rb")
         self._cache: Optional[Tuple[str, int, int, bytes]] = None  # (name, start, end, seq)
-        # The engine reads reference sequence from several threads (the
-        # region pipeline's prepare on the main thread, its begin/finish on
-        # the inference thread, the local assembly on the prefetch helper):
-        # the seek+read pair must be atomic.  The cache itself is safe
-        # lock-free — readers snapshot the tuple, writers replace it whole.
+        # The engine reads reference sequence from more than one thread
+        # (the region pipeline's, and the local assembly on the prefetch
+        # helper): the seek+read pair must be atomic.  The cache itself is
+        # safe lock-free — readers snapshot the tuple, writers replace it
+        # whole.
         self._io_lock = threading.Lock()
 
     def close(self) -> None:

@@ -185,15 +185,6 @@ def _load_and_bind(path: str) -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
     ]
-    lib.ptpu_info_accumulate.restype = None
-    lib.ptpu_info_accumulate.argtypes = (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32]
-        + [ctypes.c_void_p] * 9
-        + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
-        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p]
-        + [ctypes.c_int32] * 5
-        + [ctypes.c_void_p] * 6
-    )
     lib.ptpu_info_accumulate_window.restype = None
     lib.ptpu_info_accumulate_window.argtypes = (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32]
@@ -248,16 +239,6 @@ def _load_and_bind(path: str) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int32,         # eps_arr, max_iters
         ctypes.c_void_p, ctypes.c_void_p,        # freq_out, w_out
         ctypes.c_void_p, ctypes.c_int32,         # iters_out, n_threads
-    ]
-    lib.ptpu_genotype_call.restype = None
-    lib.ptpu_genotype_call.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int32,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.ptpu_genotype_call_samples.restype = None
     lib.ptpu_genotype_call_samples.argtypes = [
@@ -673,11 +654,10 @@ def native_variant_supported(cigar_flat: np.ndarray, cigar_off: np.ndarray,
 
 def native_info_context(reads, nsm_idx: np.ndarray, nsm_flat: np.ndarray,
                         nsm_off: np.ndarray):
-    """Per-window prepared arguments for native_info_accumulate and
-    native_info_accumulate_window, made once a window.  The [R, L] and
-    CIGAR tables go by address; the per-read columns go as bytes (a copy
-    of a few KB costs less than an address).  None when the library is
-    unavailable."""
+    """Per-window prepared arguments for native_info_accumulate_window,
+    made once a window.  The [R, L] and CIGAR tables go by address; the
+    per-read columns go as bytes (a copy of a few KB costs less than an
+    address).  None when the library is unavailable."""
     lib = load()
     if lib is None:
         return None
@@ -699,36 +679,6 @@ def native_info_context(reads, nsm_idx: np.ndarray, nsm_flat: np.ndarray,
     return (lib, arrs, args, reads.seq.shape[1], len(reads.rlen))
 
 
-def native_info_accumulate(ctx, good_rows: np.ndarray, bad_rows: np.ndarray,
-                           var_min: int, var_max: int, var_pos: int,
-                           added: bytes, n_removed: int, exact: bool,
-                           var_in_genotype: bool, bad_reads_window: int):
-    """One (variant, individual) INFO accounting pass in C++ over a
-    native_info_context.  Returns (counters[13] int64, rmsmq float,
-    min_quals, alt_dists, ref_dists)."""
-    lib, _arrs, p, L, _R = ctx
-    cap = max(1, len(good_rows))
-    counters = np.zeros(13, np.int64)
-    rmsmq = ctypes.c_double()
-    min_quals = np.zeros(cap, np.int32)
-    alt_dists = np.zeros(cap, np.int32)
-    ref_dists = np.zeros(cap, np.int32)
-    out_counts = np.zeros(3, np.int64)
-    good64 = np.ascontiguousarray(good_rows, np.int64)
-    bad64 = np.ascontiguousarray(bad_rows, np.int64)
-    lib.ptpu_info_accumulate(
-        p[0], p[1], L, p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
-        _np_ptr(good64), len(good64), _np_ptr(bad64), len(bad64),
-        var_min, var_max, var_pos, added, len(added), n_removed, int(exact),
-        int(var_in_genotype), bad_reads_window,
-        _np_ptr(counters), ctypes.byref(rmsmq), _np_ptr(min_quals),
-        _np_ptr(alt_dists), _np_ptr(ref_dists), _np_ptr(out_counts),
-    )
-    n_minq, n_alt, n_ref = out_counts.tolist()
-    return (counters, rmsmq.value, min_quals[:n_minq].tolist(),
-            alt_dists[:n_alt].tolist(), ref_dists[:n_ref].tolist())
-
-
 def native_info_accumulate_window(ctx, n_ind: int, var_spec: np.ndarray,
                                   added: bytes, var_in_genotype: bytes,
                                   exact: bool, bad_reads_window: int):
@@ -737,9 +687,10 @@ def native_info_accumulate_window(ctx, n_ind: int, var_spec: np.ndarray,
     individual.  var_spec is [V, 5] int64 (var_min, var_max, var_pos,
     n_removed, n_added), `added` the variants' added bases back to back,
     var_in_genotype [V * I] bytes of 0 / 1.  Returns (counters [V, I, 14]
-    int64: the 13 counters of native_info_accumulate and the pass's number
-    of min quals; rmsmq [V, I] f64; the passes' min quals, in pass order;
-    the window's good and bad row counts)."""
+    int64: tc, tc_bad, tr, tc_ab, tr_ab, nf, nr, nf_sb, nr_sb, tcf, tcr,
+    tcf_sb, tcr_sb and the pass's number of min quals; rmsmq [V, I] f64;
+    the passes' min quals, in pass order; the window's good and bad row
+    counts)."""
     lib, _arrs, p, L, R = ctx
     V = len(var_spec)
     if (len(var_in_genotype) != V * n_ind
@@ -1083,46 +1034,6 @@ def _verify_native_em(lib) -> bool:
     return True
 
 
-def native_genotype_call(lik_row: np.ndarray, freqs: np.ndarray,
-                         h1: np.ndarray, h2: np.ndarray,
-                         hap_is_ref: np.ndarray, var_in_hap: np.ndarray,
-                         gof: np.ndarray, gof_off: int,
-                         n_individuals: int):
-    """Per-sample genotype call + marginal class likelihoods via C++
-    (genotype.cpp); None when the library is unavailable.  Bit-exactness
-    vs the Python oracle is verified at first use by the dispatcher in
-    vcfout/records.py.
-
-    Returns (lik_out [n_classes] f64, phased [2] i32, scalars [5] f64 =
-    best_likelihood, non_ref_post, ref_post, sum_lik, best_gof)."""
-    lib = load()
-    if lib is None:
-        return None
-    G = len(h1)
-    n_vars = var_in_hap.shape[1]
-    n_classes = (n_vars + 1) * (n_vars + 2) // 2
-    lik_out = np.empty(n_classes, np.float64)
-    phased = np.empty(2, np.int32)
-    scalars = np.empty(5, np.float64)
-    # All inputs are built contiguous with these dtypes by the caller; the
-    # conversions below are no-ops then (and correctness guards otherwise).
-    lr = np.ascontiguousarray(lik_row, np.float64)
-    fq = np.ascontiguousarray(freqs, np.float64)
-    h1c = np.ascontiguousarray(h1, np.int64)
-    h2c = np.ascontiguousarray(h2, np.int64)
-    hr = np.ascontiguousarray(hap_is_ref, np.int64)
-    vih = np.ascontiguousarray(var_in_hap).view(np.uint8)
-    gf = np.ascontiguousarray(gof, np.float64)
-    # .ctypes.data inlined (= _np_ptr): ~10 pointer fetches per emitted
-    # record make the extra frame visible.
-    lib.ptpu_genotype_call(
-        lr.ctypes.data, fq.ctypes.data, h1c.ctypes.data, h2c.ctypes.data, G,
-        hr.ctypes.data, vih.ctypes.data, n_vars,
-        gf.ctypes.data, gf.shape[1], gof_off, n_individuals,
-        lik_out.ctypes.data, phased.ctypes.data, scalars.ctypes.data)
-    return lik_out, phased, scalars
-
-
 def native_genotype_context(likelihoods: np.ndarray, freqs: np.ndarray,
                             h1: np.ndarray, h2: np.ndarray, gof: np.ndarray,
                             samples: np.ndarray, n_individuals: int):
@@ -1146,10 +1057,10 @@ def native_genotype_context(likelihoods: np.ndarray, freqs: np.ndarray,
 def native_genotype_call_samples(ctx, hap_is_ref: np.ndarray,
                                  var_in_hap: np.ndarray):
     """The genotype calls of the context's samples at one position in one
-    C++ call (genotype.cpp, the per-sample body of native_genotype_call).
-    Returns [I, n_classes + 7] f64 rows: the class marginals, then
-    best_likelihood, non_ref_post, ref_post, sum_lik, best_gof, phased1,
-    phased2; rows of other samples undefined."""
+    C++ call (genotype.cpp).  Returns [I, n_classes + 7] f64 rows: the
+    class marginals, then best_likelihood, non_ref_post, ref_post,
+    sum_lik, best_gof, phased1, phased2; rows of other samples
+    undefined."""
     (lib, I, G, H, gof_stride, n_samples, n_individuals, lik, fq, h1, h2,
      gof, samples) = ctx
     n_vars = var_in_hap.shape[1]
@@ -1174,8 +1085,6 @@ def native_em(likelihoods: np.ndarray, h1: np.ndarray, h2: np.ndarray,
     to the numpy oracle in ops/likelihood.py)."""
     global _EM_VERIFIED
     if lib is None:
-        if os.environ.get("PLATYPUS_TPU_NATIVE_EM", "1") == "0":
-            return None
         lib = load()
         if lib is None:
             return None
@@ -1219,8 +1128,6 @@ def native_gl_batch(entries, n_threads: int = 0):
                n_good [I] i64, h1, h2)] with one shared I.
     Returns [(gl [I, G], gof_sum [I, G], lik [I, G])] or None when the
     library is unavailable."""
-    if os.environ.get("PLATYPUS_TPU_NATIVE_GL", "1") == "0":
-        return None
     lib = load()
     if lib is None or not entries:
         return None
@@ -1291,8 +1198,6 @@ def native_infer_batch(entries, max_iters: int = 100, n_threads: int = 0):
                h1, h2, vih [V, H] u8)] with one shared I.
     Returns [(gl [I, G], gof_div [G, I], lik [I, G], freq [H],
               csr [I, G], iters, argmax [I], ratios [V])] or None."""
-    if os.environ.get("PLATYPUS_TPU_NATIVE_INFER", "1") == "0":
-        return None
     lib = load()
     if lib is None or not entries:
         return None
@@ -1400,8 +1305,6 @@ def native_loglik_batch(entries, hash_nucs: int, mltot: float,
     entries: [(pair_scores [P] i64, pair_hap [P] i64, pair_read [P] i64,
                sub_len [A] i32, term [A] f64, align_rows [A] i64, H, R)]
     Returns [loglik [H, R] f64] or None when the library is unavailable."""
-    if os.environ.get("PLATYPUS_TPU_NATIVE_LOGLIK", "1") == "0":
-        return None
     lib = load()
     if lib is None or not entries:
         return None
@@ -1456,8 +1359,6 @@ def native_posteriors_batch(entries, n_threads: int = 0):
                rows [n_rows] int64, var_in_hap [V, H] uint8)]
     Returns [ratios [V] f64] aligned with entries, or None when the
     library is unavailable."""
-    if os.environ.get("PLATYPUS_TPU_NATIVE_POSTERIOR", "1") == "0":
-        return None
     lib = load()
     if lib is None:
         return None
@@ -1543,8 +1444,6 @@ def native_em_batch(entries, max_iters: int = 100, n_threads: int = 0):
     Returns [(freq, csr, iters)] aligned with entries, or None when the
     library is unavailable / unverified (callers fall back per window)."""
     global _EM_VERIFIED
-    if os.environ.get("PLATYPUS_TPU_NATIVE_EM", "1") == "0":
-        return None
     lib = load()
     if lib is None:
         return None

@@ -158,24 +158,11 @@ void genotype_call_one(
 
 extern "C" {
 
-void ptpu_genotype_call(
-    const double* lik, const double* freqs,
-    const int64_t* h1, const int64_t* h2, int64_t G,
-    const int64_t* hap_is_ref,
-    const uint8_t* var_in_hap, int64_t n_vars,
-    const double* gof, int64_t gof_stride, int64_t gof_off,
-    int32_t n_individuals,
-    double* lik_out, int32_t* phased_out, double* scalars_out) {
-    genotype_call_one(lik, freqs, h1, h2, G, hap_is_ref, var_in_hap, n_vars,
-                      gof, gof_stride, gof_off, n_individuals, lik_out,
-                      phased_out, scalars_out);
-}
-
 // Every listed sample of one emitted position in one call: lik is the
 // window's [I, G] row-major likelihoods, gof its [G, gof_stride] matrix,
 // samples[n_samples] the sample indices to call (those with reads).
 // Sample s writes row s of out [I, n_classes + 7]: the n_classes
-// marginals, the 5 scalars of ptpu_genotype_call, then phased1 and
+// marginals, the 5 scalars of genotype_call_one, then phased1 and
 // phased2; other rows are left as they are.
 void ptpu_genotype_call_samples(
     const double* lik, const double* freqs,

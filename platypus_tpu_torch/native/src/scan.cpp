@@ -577,17 +577,16 @@ struct InfoReads {
     const int64_t* nsm_off;
 };
 
-// One (variant, individual) pass: counters[13], rmsmq, and min_quals
-// (capacity n_good_rows); alt_dists / ref_dists are filled when given.
-// Fill counts land in out_counts[3].
+// One (variant, individual) pass: counters[13] = tc, tc_bad, tr, tc_ab,
+// tr_ab, nf, nr, nf_sb, nr_sb, tcf, tcr, tcf_sb, tcr_sb; rmsmq; and
+// min_quals (capacity n_good_rows), their count in *n_min_quals.
 void info_accumulate_one(
     const InfoReads& w, const int64_t* good_rows, int64_t n_good_rows,
     const int64_t* bad_rows, int64_t n_bad_rows, int64_t var_min,
     int64_t var_max, int64_t var_pos, const char* added, int32_t n_add,
     int32_t n_rem, int32_t exact, int32_t var_in_genotype,
     int32_t bad_reads_window, int64_t* counters, double* rmsmq,
-    int32_t* min_quals, int32_t* alt_dists, int32_t* ref_dists,
-    int64_t* out_counts) {
+    int32_t* min_quals, int64_t* n_min_quals) {
     const uint8_t* seq = w.seq;
     const uint8_t* qual = w.qual;
     const int32_t L = w.L;
@@ -599,7 +598,7 @@ void info_accumulate_one(
     int64_t nf = 0, nr = 0, nf_sb = 0, nr_sb = 0;
     int64_t tcf = 0, tcr = 0, tcf_sb = 0, tcr_sb = 0;
     double rms = 0.0;
-    int64_t n_minq = 0, n_alt = 0, n_ref = 0;
+    int64_t n_minq = 0;
 
     for (int64_t k = 0; k < n_bad_rows; ++k) {
         const int64_t r = bad_rows[k];
@@ -643,15 +642,6 @@ void info_accumulate_one(
                                       var_pos, added, n_add, n_rem, exact);
         }
 
-        // Distance of the variant from the nearer read end.
-        if (alt_dists != nullptr) {
-            int64_t off = var_min - pos[r];
-            if (off < 0) off = 0; else if (off > rl - 1) off = rl - 1;
-            const int64_t dist = off < rl - 1 - off ? off : rl - 1 - off;
-            if (supp) alt_dists[n_alt++] = (int32_t)dist;
-            else ref_dists[n_ref++] = (int32_t)dist;
-        }
-
         if (supp) {
             ++tr;
             if (rev) ++nr; else ++nf;
@@ -679,39 +669,10 @@ void info_accumulate_one(
     counters[9] = tcf; counters[10] = tcr; counters[11] = tcf_sb;
     counters[12] = tcr_sb;
     *rmsmq = rms;
-    out_counts[0] = n_minq; out_counts[1] = n_alt; out_counts[2] = n_ref;
+    *n_min_quals = n_minq;
 }
 
 }  // namespace
-
-extern "C" void ptpu_info_accumulate(
-    // Window read arrays (row-major [R, L] seq/qual).
-    const uint8_t* seq, const uint8_t* qual, int32_t L, const int64_t* pos,
-    const int64_t* end, const int32_t* rlen, const int32_t* mapq,
-    const uint8_t* strand_reverse, const uint8_t* single_m,
-    // Non-single-M CIGAR access: row -> index into the window CSR (-1 when
-    // single-M), plus the CSR itself.
-    const int32_t* nsm_idx, const uint32_t* nsm_flat, const int64_t* nsm_off,
-    // The individual's raw (pre-filter) good/bad row ids.
-    const int64_t* good_rows, int64_t n_good_rows,
-    const int64_t* bad_rows, int64_t n_bad_rows,
-    // Variant spec.
-    int64_t var_min, int64_t var_max, int64_t var_pos, const char* added,
-    int32_t n_add, int32_t n_rem, int32_t exact, int32_t var_in_genotype,
-    int32_t bad_reads_window,
-    // Outputs: counters[13] = tc, tc_bad, tr, tc_ab, tr_ab, nf, nr, nf_sb,
-    // nr_sb, tcf, tcr, tcf_sb, tcr_sb; rmsmq; min_quals / alt_dists /
-    // ref_dists are caller-alloc'd with capacity n_good_rows, their fill
-    // counts land in out_counts[3].
-    int64_t* counters, double* rmsmq, int32_t* min_quals, int32_t* alt_dists,
-    int32_t* ref_dists, int64_t* out_counts) {
-    const InfoReads w{seq, qual, L, pos, end, rlen, mapq, strand_reverse,
-                      single_m, nsm_idx, nsm_flat, nsm_off};
-    info_accumulate_one(w, good_rows, n_good_rows, bad_rows, n_bad_rows,
-                        var_min, var_max, var_pos, added, n_add, n_rem, exact,
-                        var_in_genotype, bad_reads_window, counters, rmsmq,
-                        min_quals, alt_dists, ref_dists, out_counts);
-}
 
 // Every (variant, individual) pass of a window in one call.  The rows are
 // grouped by individual here, in one stable counting pass over sample_idx:
@@ -719,7 +680,7 @@ extern "C" void ptpu_info_accumulate(
 // broken), each ascending.  Variant v is var_spec[v] = (var_min, var_max,
 // var_pos, n_removed, n_added), its added bases the next n_added of
 // added_flat; var_in_genotype is [V, I] row-major.  Outputs: counters
-// [V, I, 14] (the 13 of ptpu_info_accumulate, then the pass's number of
+// [V, I, 14] (the 13 of info_accumulate_one, then the pass's number of
 // min quals), rmsmq [V, I], the min quals of the passes in order
 // (capacity V x n_rows), and n_good_bad[2] = the window's good and bad
 // rows over every individual.
@@ -766,7 +727,6 @@ extern "C" void ptpu_info_accumulate_window(
     n_good_bad[0] = n_good;
     n_good_bad[1] = n_bad;
 
-    int64_t fill[3];
     int64_t n_minq = 0;
     const char* added = added_flat;
     for (int32_t v = 0; v < n_var; ++v) {
@@ -780,9 +740,8 @@ extern "C" void ptpu_info_accumulate_window(
                 bad_rows + bad_off[i], bad_off[i + 1] - bad_off[i],
                 spec[0], spec[1], spec[2], added, n_add, (int32_t)spec[3],
                 exact, var_in_genotype[k], bad_reads_window, c, rmsmq + k,
-                min_quals + n_minq, nullptr, nullptr, fill);
-            c[13] = fill[0];
-            n_minq += fill[0];
+                min_quals + n_minq, c + 13);
+            n_minq += c[13];
         }
         added += n_add;
     }

@@ -10,13 +10,13 @@ wrappers for profilers (SURVEY.md §5).  Here:
   cover) in `self_times`, apart for the pipeline thread -- the thread
   whose outermost span is `run`, i.e. the one running
   engine/runner.run_single_process -- and for helper threads (the BAM
-  prefetch, the PLATYPUS_TPU_INFER_THREAD stage).  A span inherits its
+  prefetch and its local assembly).  A span inherits its
   parent's region (`chrom:start-end`).  While a torch.profiler session
   runs, each span also enters record_function("platypus.<name>@<region>"),
   so it lands in the same Chrome trace as the kernels, as a
   user_annotation; with no profiler active none is entered.  Updates hold
-  a lock: with PLATYPUS_TPU_INFER_THREAD=1 the region pipeline's stages
-  time themselves on two threads at once;
+  a lock: the prefetch helper times its spans while the pipeline thread
+  times its own;
 * `trace()`: context manager wrapping `torch.profiler.profile` for
   device-level traces viewable in Perfetto or TensorBoard (enabled with
   PLATYPUS_TPU_TRACE_DIR), which also writes the spans' totals, self

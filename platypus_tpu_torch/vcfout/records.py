@@ -20,8 +20,7 @@ Faithful reimplementation of Platypus src/cython/vcfutils.pyx:
 from __future__ import annotations
 
 import math
-import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -254,8 +253,7 @@ def _info_accounts_native(reads, call: WindowCall, variants: List[Variant],
     variant reads per sample), and the window's good and bad row counts,
     from one native call over the window; None when the library is
     unavailable."""
-    window_fn = getattr(native, "native_info_accumulate_window", None)
-    if window_fn is None or native.load() is None or not reads.qual.size:
+    if native.load() is None or not reads.qual.size:
         return None
     # The region gather precomputes the non-single-M CSR (shared flat
     # tables + one idx gather per window); windows built outside the
@@ -263,7 +261,7 @@ def _info_accounts_native(reads, call: WindowCall, variants: List[Variant],
     info_ctx = native.native_info_context(
         reads, *(reads.nsm_ctx or _window_nsm_csr(reads)))
     n_ind = len(call.n_reads)
-    counters, rms, min_quals, n_good, n_bad = window_fn(
+    counters, rms, min_quals, n_good, n_bad = native.native_info_accumulate_window(
         info_ctx, n_ind,
         np.array([(v.bam_min_pos, v.bam_max_pos, v.ref_pos, v.n_removed,
                    v.n_added) for v in variants], np.int64).reshape(-1, 5),
@@ -640,132 +638,21 @@ def trim_left_padding(pos: int, ref: str, alts: List[str]) -> Tuple[int, str, Li
     return pos, ref, alts
 
 
-_GT_NATIVE_OK: Optional[bool] = None  # the per-sample entry passed
-_GT_BATCH_OK = False                  # and the per-position entry too
-
-
-def _native_gt_verified() -> bool:
-    """First-use bit-exactness self-check of the C++ genotype kernel vs the
-    Python oracle over randomized windows (same protocol as the EM twin):
-    the per-sample entry, then the per-position one, which is used only
-    when it passes too."""
-    global _GT_NATIVE_OK, _GT_BATCH_OK
-    if _GT_NATIVE_OK is None:
-        _GT_NATIVE_OK = _GT_BATCH_OK = False
-        if os.environ.get("PLATYPUS_TPU_NATIVE_GT", "1") != "0" \
-                and native.load() is not None:
-            _GT_NATIVE_OK = _verify_native_gt()
-            _GT_BATCH_OK = _GT_NATIVE_OK and _verify_native_gt_batch()
-            if not _GT_BATCH_OK:
-                import logging
-
-                logging.getLogger("platypus_tpu").warning(
-                    "native genotype kernel failed the bit-exactness "
-                    "self-check; using %s",
-                    "it sample by sample" if _GT_NATIVE_OK
-                    else "the Python oracle")
-    return _GT_NATIVE_OK
-
-
-class _FakeCall:
-    """Minimal WindowCall stand-in for the self-check."""
-    __slots__ = ("likelihoods", "frequencies", "hap1_idx", "hap2_idx", "gof")
-
-    def __init__(self, likelihoods, frequencies, hap1_idx, hap2_idx, gof):
-        self.likelihoods = likelihoods
-        self.frequencies = frequencies
-        self.hap1_idx = hap1_idx
-        self.hap2_idx = hap2_idx
-        self.gof = gof
-
-
-def _verify_native_gt() -> bool:
-    rng = np.random.default_rng(20260820)
-    for _ in range(60):
-        call, hap_is_ref, var_in_hap, n_vars, I = _random_gt_window(rng, 1, 5)
-        n_ind = I if rng.random() < 0.8 else 30
-        i = int(rng.integers(0, I))
-        variants = [None] * n_vars
-        want = _compute_genotype_call_and_likelihoods_py(
-            call, i, variants, hap_is_ref, var_in_hap, n_ind)
-        got = _genotype_call_native(call, i, variants, hap_is_ref,
-                                    var_in_hap, n_ind)
-        if got is None or not _same_genotype_call(want, got):
-            return False
-    return True
-
-
-def _random_gt_window(rng, n_ind_lo: int, n_ind_hi: int):
-    """A randomized (call, hap_is_ref, var_in_hap, n_vars, I) for the
-    self-checks: n_vars 1-3, I in [n_ind_lo, n_ind_hi]."""
-    from ..ops.likelihood import genotype_index_pairs
-
-    H = int(rng.integers(1, 14))
-    I = int(rng.integers(n_ind_lo, n_ind_hi + 1))
-    n_vars = int(rng.integers(1, 4))
-    h1, h2 = genotype_index_pairs(H)
-    G = len(h1)
-    lik = np.maximum(1e-300, rng.random((I, G)))
-    freqs = rng.random(H)
-    gof = rng.uniform(0, 50, (G, I))
-    hap_is_ref = (rng.random(H) < 0.5).astype(np.int64)
-    var_in_hap = rng.random((H, n_vars)) < 0.5
-    call = _FakeCall(lik, freqs, h1, h2, gof)
-    return call, hap_is_ref, var_in_hap, n_vars, I
-
-
-def _verify_native_gt_batch() -> bool:
-    """The per-position entry against the Python oracle, sample by sample,
-    on cohorts on both sides of the n_ind > 25 frequency weighting, with
-    some samples left out as samples without reads are."""
-    rng = np.random.default_rng(20261018)
-    for trial in range(40):
-        call, hap_is_ref, var_in_hap, n_vars, I = _random_gt_window(
-            rng, *((26, 32) if trial % 4 == 0 else (1, 6)))
-        samples = [i for i in range(I) if rng.random() < 0.85]
-        got = _genotype_calls_native(
-            native.native_genotype_context(
-                call.likelihoods, call.frequencies, call.hap1_idx,
-                call.hap2_idx, call.gof, np.array(samples, np.int64), I),
-            samples, hap_is_ref, var_in_hap)
-        if got is None or sorted(got) != samples:
-            return False
-        variants = [None] * n_vars
-        for i in samples:
-            want = _compute_genotype_call_and_likelihoods_py(
-                call, i, variants, hap_is_ref, var_in_hap, I)
-            if not _same_genotype_call(want, got[i]):
-                return False
-    return True
-
-
-def _same_genotype_call(want, got) -> bool:
-    return (want[0] == got[0] and want[1] == got[1]
-            and np.asarray(want[2]).tobytes() == np.asarray(got[2]).tobytes()
-            and np.asarray(want[3:]).tobytes() == np.asarray(got[3:]).tobytes())
-
-
 def _genotype_context(call: WindowCall, samples: List[int],
                       n_individuals: int):
     """The window's tables prepared for the per-position native entry, to
-    call `samples`; None where it is unavailable or failed its
-    self-check."""
-    if not (_native_gt_verified() and _GT_BATCH_OK):
+    call `samples`; None where the library is unavailable."""
+    if native.load() is None:
         return None
-    # getattr: tests stub the `native` module out to force the Python
-    # path; the verified-flag cache must not defeat the stub.
-    fn = getattr(native, "native_genotype_context", None)
-    if fn is None:
-        return None
-    return fn(call.likelihoods, call.frequencies, call.hap1_idx,
-              call.hap2_idx, call.gof, np.array(samples, np.int64),
-              n_individuals)
+    return native.native_genotype_context(
+        call.likelihoods, call.frequencies, call.hap1_idx, call.hap2_idx,
+        call.gof, np.array(samples, np.int64), n_individuals)
 
 
 def _genotype_calls_native(ctx, samples: List[int], hap_is_ref_at_pos,
                            var_in_hap):
-    """compute_genotype_call_and_likelihoods of the context's samples in
-    one native call: {sample: the same tuple}; None when unavailable."""
+    """_compute_genotype_call_and_likelihoods_py of the context's samples
+    in one native call: {sample: the same tuple}; None when unavailable."""
     if ctx is None:
         return None
     rows = native.native_genotype_call_samples(
@@ -782,52 +669,6 @@ def _genotype_calls_native(ctx, samples: List[int], hap_is_ref_at_pos,
                   best_likelihood / sum_lik, non_ref_post / sum_lik,
                   ref_post / sum_lik, best_gof)
     return out
-
-
-def _genotype_call_native(call, sample_index, variants_this_pos,
-                          hap_is_ref_at_pos, var_in_hap, n_individuals):
-    # getattr: tests stub the `native` module out to force the Python
-    # path; the verified-flag cache must not defeat the stub.
-    fn = getattr(native, "native_genotype_call", None)
-    if fn is None:
-        return None
-    res = fn(
-        call.likelihoods[sample_index], call.frequencies,
-        call.hap1_idx, call.hap2_idx, hap_is_ref_at_pos, var_in_hap,
-        call.gof, sample_index, n_individuals)
-    if res is None:
-        return None
-    lik_out, phased, scalars = res
-    best_likelihood, non_ref_post, ref_post, sum_lik, best_gof = scalars.tolist()
-    if sum_lik == 0:
-        sum_lik = 1.0
-    return (
-        int(phased[0]), int(phased[1]), lik_out.tolist(),
-        best_likelihood / sum_lik, non_ref_post / sum_lik,
-        ref_post / sum_lik, best_gof,
-    )
-
-
-def compute_genotype_call_and_likelihoods(
-    call: WindowCall,
-    sample_index: int,
-    variants_this_pos: List[Variant],
-    hap_is_ref_at_pos: np.ndarray,       # [H] int
-    var_in_hap: np.ndarray,              # [H, nVars] bool
-    n_individuals: int,
-):
-    """vcfutils.pyx:163-334 — dispatches to the C++ kernel (genotype.cpp,
-    bit-exact, self-checked at first use) with the Python body below as
-    the oracle and fallback."""
-    if _native_gt_verified():
-        res = _genotype_call_native(call, sample_index, variants_this_pos,
-                                    hap_is_ref_at_pos, var_in_hap,
-                                    n_individuals)
-        if res is not None:
-            return res
-    return _compute_genotype_call_and_likelihoods_py(
-        call, sample_index, variants_this_pos, hap_is_ref_at_pos,
-        var_in_hap, n_individuals)
 
 
 def _compute_genotype_call_and_likelihoods_py(
@@ -1002,7 +843,7 @@ def output_call_to_vcf(
             n_non_ref_calls = 0
         with metrics.timer("vcf_genotypes"):
             # One native call for every sample with reads where the
-            # per-position entry is verified, else one per sample.
+            # library loads, else the Python body sample by sample.
             calls = _genotype_calls_native(gt_ctx, called, hap_is_ref,
                                            var_in_hap)
             if calls is not None:
@@ -1019,7 +860,7 @@ def output_call_to_vcf(
                     index1, index2, likelihoods, genotype_post, non_ref_post,
                     ref_post, gof_value,
                 ) = calls[i] if calls is not None else (
-                    compute_genotype_call_and_likelihoods(
+                    _compute_genotype_call_and_likelihoods_py(
                         call, i, variants, hap_is_ref, var_in_hap, len(buffers)))
                 if not (index1 == 0 and index2 == 0):
                     n_non_ref_calls += 1

@@ -276,13 +276,11 @@ class _Schedule:
         return [r for k, r in self.events if k == kind]
 
 
-@pytest.mark.parametrize("thread", ["0", "1"])
 def test_prefetched_assembly_matches_the_jax_package(long_events,
                                                      jax_quarters, tmp_path,
-                                                     monkeypatch, thread):
-    """Four regions with --assemble=1 through run_single_process, inline
-    and with PLATYPUS_TPU_INFER_THREAD=1: the VCF data lines equal the JAX
-    package's byte for byte; assembly_prefetched counts the three regions
+                                                     monkeypatch):
+    """Four regions with --assemble=1 through run_single_process: the VCF
+    data lines equal the JAX package's byte for byte; assembly_prefetched counts the three regions
     whose helper assembled them; the tiles and variants equal those of
     every region assembled inline."""
     d, _meta = long_events
@@ -293,7 +291,6 @@ def test_prefetched_assembly_matches_the_jax_package(long_events,
         assembly.assemble_region_variants(CONTIG, start, end, ref, buffers,
                                           config)
     inline = dict(GLOBAL_METRICS.counters)
-    monkeypatch.setenv("PLATYPUS_TPU_INFER_THREAD", thread)
     sched = _Schedule(monkeypatch)
     out = str(tmp_path / "port.vcf")
     GLOBAL_METRICS.reset()

@@ -12,7 +12,6 @@ imports, blocks jax and can slow the host workers down.
 """
 
 import os
-import threading
 from unittest import mock
 
 import pytest
@@ -172,8 +171,7 @@ def _fail_pairs_at(start, fn):
 
 
 # stage -> (JAX package's module and name, the port's module and name);
-# the first three fail in prepare, "finish" in the stage that writes (on
-# the ptpu-infer thread with PLATYPUS_TPU_INFER_THREAD=1)
+# the first three fail in prepare, "finish" in the stage that writes
 HOST_STAGES = {
     "candidates": (jax_region, port_region, "generate_variants_in_region"),
     "windows": (jax_region, port_region, "generate_windows"),
@@ -183,23 +181,45 @@ HOST_STAGES = {
 
 
 def _modes(cases):
-    """Each case inline (PLATYPUS_TPU_INFER_THREAD=0, under its own id)
-    and with the inference thread (id suffix -thread)."""
-    return [pytest.param(case, mode, id=case + suffix)
-            for case in cases for mode, suffix in (("0", ""), ("1", "-thread"))]
+    """Each case under the runner's two schedules: --assemble=0 (under the
+    case's own id) and --assemble=1 (id suffix -assemble), whose prefetch
+    helper starts before the region ahead of it is prepared."""
+    return [pytest.param(case, flag, id=case + suffix)
+            for case in cases
+            for flag, suffix in (("--assemble=0", ""), ("--assemble=1", "-assemble"))]
 
 
-@pytest.mark.parametrize("stage,thread", _modes(sorted(HOST_STAGES)))
-def test_region_containment_matches_jax(tmp_path, dataset, stage, thread,
+class _CountedPrefetch(port_runner.RegionPrefetch):
+    """The runner's RegionPrefetch, recording every helper it started."""
+
+    started = []
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.started.append(self)
+
+
+def _count_prefetch(monkeypatch):
+    _CountedPrefetch.started.clear()
+    monkeypatch.setattr(port_runner, "RegionPrefetch", _CountedPrefetch)
+
+
+def _helpers_alive():
+    """Prefetch helpers the run started and left running."""
+    return [p for p in _CountedPrefetch.started if p._thread.is_alive()]
+
+
+@pytest.mark.parametrize("stage,schedule", _modes(sorted(HOST_STAGES)))
+def test_region_containment_matches_jax(tmp_path, dataset, stage, schedule,
                                         monkeypatch):
     """A host fault in one region's candidate generation, windowing, pair
     voting or finish: the JAX package logs and skips the region, and so
-    does the port, inline and with the inference thread, so both VCFs
-    agree and lack that region's call."""
+    does the port, under either schedule, so both VCFs agree and lack
+    that region's call."""
     workdir, ref_path = dataset
     jax_mod, port_mod, name = HOST_STAGES[stage]
     start = 8999  # the 2 kb region holding the deletion at 9100
-    full = reference_lines(workdir, ref_path, [SHARDS])
+    full = reference_lines(workdir, ref_path, [SHARDS, schedule])
     jax_out, port_out = str(tmp_path / "jax.vcf"), str(tmp_path / "port.vcf")
     if stage == "pair_voting":
         inject = lambda fn: _fail_pairs_at(start, fn)  # noqa: E731
@@ -207,13 +227,13 @@ def test_region_containment_matches_jax(tmp_path, dataset, stage, thread,
         inject = lambda fn: _fail_state_at(start, fn)  # noqa: E731
     else:
         inject = lambda fn: _fail_at(start, fn)  # noqa: E731
-    monkeypatch.setenv("PLATYPUS_TPU_INFER_THREAD", thread)
+    _count_prefetch(monkeypatch)
     with mock.patch.object(jax_mod, name, inject(getattr(jax_mod, name))):
         assert jax_cli(cli_args(workdir, ref_path, jax_out,
-                                ["--deviceInference=0", SHARDS])) == 0
+                                ["--deviceInference=0", SHARDS, schedule])) == 0
     with mock.patch.object(port_mod, name, inject(getattr(port_mod, name))):
         assert port_cli.main(cli_args(workdir, ref_path, port_out,
-                                      ["--deviceInference=1", SHARDS]),
+                                      ["--deviceInference=1", SHARDS, schedule]),
                              device="cpu") == 0
     want = data_lines(jax_out)
     assert data_lines(port_out) == want
@@ -222,7 +242,7 @@ def test_region_containment_matches_jax(tmp_path, dataset, stage, thread,
         log = fh.read()
     assert "Region chr20:8999-10999 will be skipped" in log
     assert log.count("will be skipped") == 1
-    assert not [t for t in threading.enumerate() if t.name.startswith("ptpu-infer")]
+    assert not _helpers_alive()
 
 
 def _raise_cuda_error(*args, **kwargs):
@@ -252,27 +272,27 @@ class _CountedFasta(port_runner.FastaFile):
         super().close()
 
 
-@pytest.mark.parametrize("stage,thread", _modes(sorted(DEVICE_STAGES)))
-def test_device_stage_failure_stops_the_run(tmp_path, dataset, stage, thread,
+@pytest.mark.parametrize("stage,schedule", _modes(sorted(DEVICE_STAGES)))
+def test_device_stage_failure_stops_the_run(tmp_path, dataset, stage, schedule,
                                             monkeypatch):
     """A failure in any device stage of the region pipeline leaves as
-    DeviceError, which the region containment lets through, inline and
-    from the inference thread: the run raises, no region is skipped or
-    written, and the helper thread and every FASTA handle are closed."""
+    DeviceError, which the region containment lets through, under either
+    schedule: the run raises, no region is skipped or written, and every
+    prefetch helper has ended and every FASTA handle is closed."""
     workdir, ref_path = dataset
     out = str(tmp_path / "fail.vcf")
-    monkeypatch.setenv("PLATYPUS_TPU_INFER_THREAD", thread)
+    _count_prefetch(monkeypatch)
     monkeypatch.setattr(port_runner, "FastaFile", _CountedFasta)
     with mock.patch.object(*DEVICE_STAGES[stage], _raise_cuda_error):
         with pytest.raises(DeviceError, match="CUDA error 700"):
             port_cli.main(cli_args(workdir, ref_path, out,
-                                   ["--deviceInference=1", SHARDS]),
+                                   ["--deviceInference=1", SHARDS, schedule]),
                           device="cpu")
     with open(f"{out}.log") as fh:
         assert "will be skipped" not in fh.read()
     assert data_lines(out) == []
     assert not _CountedFasta.open_handles
-    assert not [t for t in threading.enumerate() if t.name.startswith("ptpu-infer")]
+    assert not _helpers_alive()
 
 
 def _device_error_at(start, fn):
@@ -284,31 +304,33 @@ def _device_error_at(start, fn):
     return wrapped
 
 
-@pytest.mark.parametrize("stage,thread",
+@pytest.mark.parametrize("stage,schedule",
                          _modes(["begin_region_inference", "finish_region_call"]))
 def test_device_error_stops_the_run_at_its_region(tmp_path, dataset, stage,
-                                                  thread, monkeypatch):
-    """A DeviceError in one region's begin or finish, inline or on the
-    inference thread: the run raises, no region after the failed one is
-    written, and the regions before it are (begin k runs before finish
-    k-2 in one stage, so a failed begin leaves k-1 unwritten too)."""
+                                                  schedule, monkeypatch):
+    """A DeviceError in one region's begin or finish, under either
+    schedule: the run raises, no region after the failed one is written,
+    and the regions before it are (begin k runs before finish k-2 in one
+    stage, so a failed begin leaves k-1 unwritten too); the prefetch
+    helper running at the fault has ended."""
     workdir, ref_path = dataset
     start = 8999  # the fifth 2 kb region
-    full = reference_lines(workdir, ref_path, [SHARDS])
+    full = reference_lines(workdir, ref_path, [SHARDS, schedule])
     last = start - 2000 if stage == "begin_region_inference" else start
     out = str(tmp_path / "fail.vcf")
-    monkeypatch.setenv("PLATYPUS_TPU_INFER_THREAD", thread)
+    _count_prefetch(monkeypatch)
     monkeypatch.setattr(port_runner, stage,
                         _device_error_at(start, getattr(port_runner, stage)))
     with pytest.raises(DeviceError, match="CUDA error 700"):
         port_cli.main(cli_args(workdir, ref_path, out,
-                               ["--deviceInference=1", SHARDS]), device="cpu")
+                               ["--deviceInference=1", SHARDS, schedule]),
+                      device="cpu")
     want = [line for line in full if int(line.split("\t")[1]) <= last]
     assert want and len(want) < len(full)
     assert data_lines(out) == want
     with open(f"{out}.log") as fh:
         assert "will be skipped" not in fh.read()
-    assert not [t for t in threading.enumerate() if t.name.startswith("ptpu-infer")]
+    assert not _helpers_alive()
 
 
 REFERENCE_HEADER = (

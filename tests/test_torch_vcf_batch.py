@@ -1,19 +1,21 @@
 """The VCF output's batched native entries (platypus_tpu_torch/native):
 INFO accounting crosses into C++ once per window
 (ptpu_info_accumulate_window) and genotype calls once per position
-(ptpu_genotype_call_samples).  Each is held bitwise to the route it
-replaces (one native_info_accumulate per (variant, individual); the Python
-oracle per sample), and a port run on a 3-sample cohort counts how many
-accountings each crossing covers."""
+(ptpu_genotype_call_samples).  Each is held bitwise to the Python route
+used where the library does not load (the numpy INFO body; the genotype
+body per sample), a loaded library sends every position to the native
+entry, and a port run on a 3-sample cohort counts how many accountings
+each crossing covers."""
 
 import types
-from unittest import mock
 
 import numpy as np
 import pytest
 
 from platypus_tpu_torch import cli as port_cli
 from platypus_tpu_torch import native
+from platypus_tpu_torch.candidates.variant import Variant
+from platypus_tpu_torch.ops.likelihood import genotype_index_pairs
 from platypus_tpu_torch.utils.observability import GLOBAL_METRICS
 from platypus_tpu_torch.vcfout import records
 from test_torch_smoke_data import cohort_dataset
@@ -94,43 +96,85 @@ def _random_window(rng, n_ind):
     return reads, nsm, variants, var_in_genotype
 
 
+class _Cigars:
+    """The window's non-single-M CIGARs as the rows of one read set:
+    cigar_refs[r] = (this, its CSR index), as io/bam.ReadSet serves them."""
+
+    def __init__(self, flat, off):
+        self.cigar_flat, self.cigar_off = flat, off
+
+    def cigar_ops(self, i):
+        words = self.cigar_flat[self.cigar_off[i]:self.cigar_off[i + 1]]
+        return np.stack([words & 0xF, words >> 4], axis=1).astype(np.int64)
+
+
+def _info_window(rng, n_ind):
+    """_random_window as the INFO routes take it: (reads, call, variants)
+    with the reads' CIGARs behind cigar_refs, and a call whose genotype of
+    individual i is haplotype i twice, carrying the variants its column
+    of var_in_genotype marks (none called where the column is empty)."""
+    reads, nsm, specs, vig = _random_window(rng, n_ind)
+    nsm_idx, flat, off = nsm
+    cigars = _Cigars(flat, off)
+    reads.cigar_refs = [(cigars, int(j)) if j >= 0 else None for j in nsm_idx]
+    # Half the windows carry the region's CSR, half derive it from the refs.
+    reads.nsm_ctx = nsm if rng.random() < 0.5 else None
+    variants = []
+    for var_min, var_max, var_pos, added, n_removed in specs:
+        v = Variant("chr20", var_pos, b"A" * n_removed, added)
+        v.bam_min_pos, v.bam_max_pos = var_min, var_max
+        variants.append(v)
+    idx = np.arange(n_ind)
+    call = types.SimpleNamespace(
+        n_reads=np.ones(n_ind, np.int64), hap1_idx=idx, hap2_idx=idx,
+        genotype_calls=[i if vig[:, i].any() else None for i in range(n_ind)],
+        hap_var_sets=[{v for k, v in enumerate(variants) if vig[k, i]}
+                      for i in range(n_ind)])
+    return reads, call, variants
+
+
 @pytest.mark.parametrize("n_ind", [1, 3, 16, 30])
-def test_info_window_entry_matches_per_pass_entry(n_ind):
+def test_info_window_entry_matches_numpy_body(n_ind):
+    """The window entry's accounts (per variant: the 13 totals, MQ's sum,
+    the sorted min quals, reads and variant reads per sample; the good and
+    bad row counts) equal the numpy body's, which walks the CIGARs in
+    Python, bit for bit."""
     rng = np.random.default_rng(1500 + n_ind)
     for trial in range(12):
-        reads, nsm, variants, vig = _random_window(rng, n_ind)
+        reads, call, variants = _info_window(rng, n_ind)
         if trial % 2:  # rows not ordered by individual
             reads.sample_idx = rng.permutation(reads.sample_idx)
-        exact = bool(rng.random() < 0.5)
-        window = int(rng.choice([1, 7, 15]))
-        ctx = native.native_info_context(reads, *nsm)
-        spec = np.array([(v[0], v[1], v[2], v[4], len(v[3])) for v in variants])
-        counters, rms, min_quals, n_good, n_bad = native.native_info_accumulate_window(
-            ctx, n_ind, spec, b"".join(v[3] for v in variants),
-            vig.astype(np.uint8).tobytes(), exact, window)
-        # The per-pass oracle takes each individual's rows as the 2 x I
-        # masks of the per-pass route gave them.
-        good = [np.flatnonzero((reads.sample_idx == i) & reads.is_good)
-                for i in range(n_ind)]
-        bad = [np.flatnonzero((reads.sample_idx == i) & ~reads.is_good
-                              & ~reads.is_broken) for i in range(n_ind)]
-        assert (n_good, n_bad) == (sum(map(len, good)), sum(map(len, bad)))
-        lo = 0
-        for k, (var_min, var_max, var_pos, added, n_removed) in enumerate(variants):
-            folded_want = folded_got = 0.0
-            for i in range(n_ind):
-                c, r, mq, _alt, _ref = native.native_info_accumulate(
-                    ctx, good[i], bad[i], var_min, var_max, var_pos, added,
-                    n_removed, exact, bool(vig[k, i]), window)
-                assert counters[k, i, :13].tolist() == c.tolist()
-                assert counters[k, i, 13] == len(mq)
-                assert np.float64(r).tobytes() == rms[k, i].tobytes()
-                folded_want += r
-                folded_got += float(rms[k, i])
-                assert min_quals[lo:lo + len(mq)].tolist() == mq
-                lo += len(mq)
-            assert np.float64(folded_want).tobytes() == np.float64(folded_got).tobytes()
-        assert lo == len(min_quals)
+        config = types.SimpleNamespace(
+            count_only_exact_indel_matches=int(rng.random() < 0.5),
+            bad_reads_window=int(rng.choice([1, 7, 15])))
+        want = records._info_accounts_numpy(reads, call, variants, config)
+        got = records._info_accounts_native(reads, call, variants, config)
+        assert got == want, trial
+        for (_t, rms_got, *_), (_t2, rms_want, *_) in zip(got[0], want[0]):
+            assert np.float64(rms_got).tobytes() == np.float64(rms_want).tobytes()
+
+
+def _random_gt_window(rng, n_ind_lo: int, n_ind_hi: int):
+    """A randomized (call, hap_is_ref, var_in_hap, n_vars, I): n_vars 1-3,
+    I in [n_ind_lo, n_ind_hi]."""
+    H = int(rng.integers(1, 14))
+    I = int(rng.integers(n_ind_lo, n_ind_hi + 1))
+    n_vars = int(rng.integers(1, 4))
+    h1, h2 = genotype_index_pairs(H)
+    G = len(h1)
+    call = types.SimpleNamespace(
+        likelihoods=np.maximum(1e-300, rng.random((I, G))),
+        frequencies=rng.random(H), hap1_idx=h1, hap2_idx=h2,
+        gof=rng.uniform(0, 50, (G, I)))
+    hap_is_ref = (rng.random(H) < 0.5).astype(np.int64)
+    var_in_hap = rng.random((H, n_vars)) < 0.5
+    return call, hap_is_ref, var_in_hap, n_vars, I
+
+
+def _same_genotype_call(want, got) -> bool:
+    return (want[0] == got[0] and want[1] == got[1]
+            and np.asarray(want[2]).tobytes() == np.asarray(got[2]).tobytes()
+            and np.asarray(want[3:]).tobytes() == np.asarray(got[3:]).tobytes())
 
 
 @pytest.mark.parametrize("cohort", ["small", "large"])
@@ -139,7 +183,7 @@ def test_genotype_samples_entry_matches_python_oracle(cohort):
     frequency-weighted marginals); samples without reads left out."""
     rng = np.random.default_rng(15 if cohort == "small" else 16)
     for _trial in range(30):
-        call, hap_is_ref, var_in_hap, n_vars, I = records._random_gt_window(
+        call, hap_is_ref, var_in_hap, n_vars, I = _random_gt_window(
             rng, *((1, 25) if cohort == "small" else (26, 40)))
         samples = [i for i in range(I) if rng.random() < 0.8]
         ctx = native.native_genotype_context(
@@ -151,7 +195,7 @@ def test_genotype_samples_entry_matches_python_oracle(cohort):
         for i in samples:
             want = records._compute_genotype_call_and_likelihoods_py(
                 call, i, [None] * n_vars, hap_is_ref, var_in_hap, I)
-            assert records._same_genotype_call(want, got[i]), (cohort, i)
+            assert _same_genotype_call(want, got[i]), (cohort, i)
 
 
 # ---------------------------------------------------------------------------
@@ -190,25 +234,25 @@ def test_vcf_native_counters_and_stubbed_native(cohort3, tmp_path, monkeypatch):
     assert py_lines == lines
 
 
-def test_failed_batch_self_check_calls_sample_by_sample(cohort3, tmp_path,
-                                                        monkeypatch):
-    lines, _calls, _rows = _run_port(cohort3, str(tmp_path / "batched.vcf"))
+def test_loaded_library_calls_every_position_natively(cohort3, tmp_path,
+                                                     monkeypatch):
+    """With the library loaded, the first window's positions already go to
+    the per-position entry, one call a written position, and the Python
+    genotype body is never called."""
+    positions, python_calls = [], []
+    inner = native.native_genotype_call_samples
 
-    def corrupted(*args, **kwargs):
-        rows = native.native_genotype_call_samples(*args, **kwargs)
-        rows[:, -3] += 1.0   # every best GOF off by one
-        return rows
+    def per_position(*args, **kwargs):
+        positions.append(1)
+        return inner(*args, **kwargs)
 
-    corrupt_native = types.SimpleNamespace(
-        **{k: getattr(native, k) for k in dir(native) if not k.startswith("__")})
-    corrupt_native.native_genotype_call_samples = corrupted
-    monkeypatch.setattr(records, "native", corrupt_native)
-    monkeypatch.setattr(records, "_GT_NATIVE_OK", None)
-    monkeypatch.setattr(records, "_GT_BATCH_OK", False)
-    with mock.patch.object(corrupt_native, "native_genotype_call",
-                           wraps=native.native_genotype_call) as per_sample:
-        got, _calls, _rows = _run_port(cohort3, str(tmp_path / "fallback.vcf"))
-        assert records._GT_NATIVE_OK and not records._GT_BATCH_OK
-        # The self-check's 60 calls, then the output's, one per sample.
-        assert per_sample.call_count > 60
-    assert got == lines
+    def python_body(*args, **kwargs):
+        python_calls.append(1)
+        raise AssertionError("the Python genotype body was called")
+
+    monkeypatch.setattr(native, "native_genotype_call_samples", per_position)
+    monkeypatch.setattr(records, "_compute_genotype_call_and_likelihoods_py",
+                        python_body)
+    lines, _calls, _rows = _run_port(cohort3, str(tmp_path / "native.vcf"))
+    assert lines and not python_calls
+    assert len(positions) == len(lines)
