@@ -240,6 +240,14 @@ def _load_and_bind(path: str) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p,        # freq_out, w_out
         ctypes.c_void_p, ctypes.c_int32,         # iters_out, n_threads
     ]
+    lib.ptpu_vcf_window.restype = None
+    lib.ptpu_vcf_window.argtypes = (
+        [ctypes.c_void_p] * 14                               # reads
+        + [ctypes.c_void_p] * 7                              # genotypes
+        + [ctypes.c_void_p] * 5                              # variants
+        + [ctypes.c_void_p] * 7                              # sums .. qd cap
+        + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    )
     lib.ptpu_genotype_call_samples.restype = None
     lib.ptpu_genotype_call_samples.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p,
@@ -652,18 +660,28 @@ def native_variant_supported(cigar_flat: np.ndarray, cigar_off: np.ndarray,
     return out.astype(bool)
 
 
+def _address(arr: np.ndarray) -> int:
+    """An array's address: through a ctypes view of a writable contiguous
+    buffer, at a third of the cost of .ctypes.data, which serves the
+    others; the caller holds the array for the duration of the call."""
+    try:
+        return ctypes.addressof(ctypes.c_char.from_buffer(arr))
+    except (TypeError, ValueError, BufferError):
+        return arr.ctypes.data
+
+
 def native_info_context(reads, nsm_idx: np.ndarray, nsm_flat: np.ndarray,
                         nsm_off: np.ndarray):
-    """Per-window prepared arguments for native_info_accumulate_window,
-    made once a window.  The [R, L] and CIGAR tables go by address; the
-    per-read columns go as bytes (a copy of a few KB costs less than an
-    address).  None when the library is unavailable."""
+    """Per-window prepared arguments for native_info_accumulate_window and
+    native_vcf_window, made once a window.  The [R, L] and CIGAR tables go
+    by address; the per-read columns go as bytes (a copy of a few KB costs
+    less than an address).  None when the library is unavailable."""
     lib = load()
     if lib is None:
         return None
     arrs = (reads.seq, reads.qual, nsm_flat, nsm_off)
     args = (
-        reads.seq.ctypes.data, reads.qual.ctypes.data,
+        _address(reads.seq), _address(reads.qual),
         np.ascontiguousarray(reads.pos, np.int64).tobytes(),
         np.ascontiguousarray(reads.end, np.int64).tobytes(),
         np.ascontiguousarray(reads.rlen, np.int32).tobytes(),
@@ -671,7 +689,7 @@ def native_info_context(reads, nsm_idx: np.ndarray, nsm_flat: np.ndarray,
         reads.strand_reverse.astype(np.bool_, copy=False).tobytes(),
         reads.single_m().astype(np.bool_, copy=False).tobytes(),
         np.ascontiguousarray(nsm_idx, np.int32).tobytes(),
-        nsm_flat.ctypes.data, nsm_off.ctypes.data,
+        _address(nsm_flat), _address(nsm_off),
         np.ascontiguousarray(reads.sample_idx, np.int32).tobytes(),
         reads.is_good.astype(np.bool_, copy=False).tobytes(),
         reads.is_broken.astype(np.bool_, copy=False).tobytes(),
@@ -710,6 +728,31 @@ def native_info_accumulate_window(ctx, n_ind: int, var_spec: np.ndarray,
     )
     return (counters, rmsmq, min_quals[:int(counters[:, :, 13].sum())],
             int(n_good_bad[0]), int(n_good_bad[1]))
+
+
+def native_vcf_window(ctx, genotype_args, variant_args, ref_args,
+                      cols: bytes, dims: bytes, conf: bytes, qd_cap: bytes,
+                      n_lines: int, cap: int):
+    """One called window's VCF data lines from one C++ call
+    (vcf_window.cpp ptpu_vcf_window) over a native_info_context and the
+    window's genotype tables, variants and reference slice, laid out as
+    ptpu_vcf_window documents; n_lines bounds the lines (the window's
+    positions).  Returns (the lines' bytes, [1-based position, line end
+    offset, ...], rows covered), or None where the entry leaves the window
+    to the Python route."""
+    lib, _arrs, p, _L, _R = ctx
+    result = (ctypes.c_int64 * (4 + 2 * n_lines))()
+    for _attempt in range(2):
+        text = ctypes.create_string_buffer(cap)
+        lib.ptpu_vcf_window(*p, *genotype_args, *variant_args, *ref_args,
+                            cols, dims, conf, qd_cap, text, cap, result)
+        status, n, size, rows = result[:4]
+        if status != 2:
+            break
+        cap = size
+    if status != 0:
+        return None
+    return ctypes.string_at(text, size), result[4:4 + 2 * n], rows
 
 
 def native_trim_reads(reads, good_mask: np.ndarray, trim_read_flank: int,

@@ -16,8 +16,9 @@
 #include <vector>
 
 #include "np_sum.h"
+#include "vcf_parts.h"
 
-namespace {
+namespace ptpu {
 
 // lik: [G] relative likelihoods for ONE sample (row of [I, G]).
 // freqs: [H] EM haplotype frequencies.
@@ -154,7 +155,7 @@ void genotype_call_one(
     scalars_out[4] = best_gof;
 }
 
-}  // namespace
+}  // namespace ptpu
 
 extern "C" {
 
@@ -178,9 +179,10 @@ void ptpu_genotype_call_samples(
     for (int64_t k = 0; k < n_samples; ++k) {
         const int64_t s = samples[k];
         double* row = out + s * width;
-        genotype_call_one(lik + s * G, freqs, h1, h2, G, hap_is_ref,
-                          var_in_hap, n_vars, gof, gof_stride, s,
-                          n_individuals, row, phased, row + n_classes);
+        ptpu::genotype_call_one(lik + s * G, freqs, h1, h2, G, hap_is_ref,
+                                var_in_hap, n_vars, gof, gof_stride, s,
+                                n_individuals, row, phased,
+                                row + n_classes);
         row[n_classes + 5] = phased[0];
         row[n_classes + 6] = phased[1];
     }

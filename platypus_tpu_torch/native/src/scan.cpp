@@ -20,6 +20,8 @@
 #include <unordered_map>
 #include <vector>
 
+#include "vcf_parts.h"
+
 namespace {
 
 struct ScanResult {
@@ -561,27 +563,11 @@ inline bool overlap_qualgood_row(int64_t pos, int64_t end, int32_t rl,
     return true;
 }
 
-// The window's read arrays, shared by every (variant, individual) pass.
-struct InfoReads {
-    const uint8_t* seq;
-    const uint8_t* qual;
-    int32_t L;
-    const int64_t* pos;
-    const int64_t* end;
-    const int32_t* rlen;
-    const int32_t* mapq;
-    const uint8_t* strand_reverse;
-    const uint8_t* single_m;
-    const int32_t* nsm_idx;
-    const uint32_t* nsm_flat;
-    const int64_t* nsm_off;
-};
-
 // One (variant, individual) pass: counters[13] = tc, tc_bad, tr, tc_ab,
 // tr_ab, nf, nr, nf_sb, nr_sb, tcf, tcr, tcf_sb, tcr_sb; rmsmq; and
 // min_quals (capacity n_good_rows), their count in *n_min_quals.
 void info_accumulate_one(
-    const InfoReads& w, const int64_t* good_rows, int64_t n_good_rows,
+    const ptpu::InfoReads& w, const int64_t* good_rows, int64_t n_good_rows,
     const int64_t* bad_rows, int64_t n_bad_rows, int64_t var_min,
     int64_t var_max, int64_t var_pos, const char* added, int32_t n_add,
     int32_t n_rem, int32_t exact, int32_t var_in_genotype,
@@ -684,19 +670,13 @@ void info_accumulate_one(
 // min quals), rmsmq [V, I], the min quals of the passes in order
 // (capacity V x n_rows), and n_good_bad[2] = the window's good and bad
 // rows over every individual.
-extern "C" void ptpu_info_accumulate_window(
-    const uint8_t* seq, const uint8_t* qual, int32_t L, const int64_t* pos,
-    const int64_t* end, const int32_t* rlen, const int32_t* mapq,
-    const uint8_t* strand_reverse, const uint8_t* single_m,
-    const int32_t* nsm_idx, const uint32_t* nsm_flat, const int64_t* nsm_off,
-    const int32_t* sample_idx, const uint8_t* is_good,
+void ptpu::info_accumulate_window(
+    const InfoReads& w, const int32_t* sample_idx, const uint8_t* is_good,
     const uint8_t* is_broken, int64_t n_rows, int32_t n_ind, int32_t n_var,
     const int64_t* var_spec, const char* added_flat,
     const uint8_t* var_in_genotype, int32_t exact, int32_t bad_reads_window,
     int64_t* counters, double* rmsmq, int32_t* min_quals,
     int64_t* n_good_bad) {
-    const InfoReads w{seq, qual, L, pos, end, rlen, mapq, strand_reverse,
-                      single_m, nsm_idx, nsm_flat, nsm_off};
     // CSR offsets: good_off [n_ind + 1], then bad_off [n_ind + 1] into the
     // bad rows, which follow the good ones in `rows`.
     thread_local std::vector<int64_t> off, cursor, rows;
@@ -745,4 +725,24 @@ extern "C" void ptpu_info_accumulate_window(
         }
         added += n_add;
     }
+}
+
+extern "C" void ptpu_info_accumulate_window(
+    const uint8_t* seq, const uint8_t* qual, int32_t L, const int64_t* pos,
+    const int64_t* end, const int32_t* rlen, const int32_t* mapq,
+    const uint8_t* strand_reverse, const uint8_t* single_m,
+    const int32_t* nsm_idx, const uint32_t* nsm_flat, const int64_t* nsm_off,
+    const int32_t* sample_idx, const uint8_t* is_good,
+    const uint8_t* is_broken, int64_t n_rows, int32_t n_ind, int32_t n_var,
+    const int64_t* var_spec, const char* added_flat,
+    const uint8_t* var_in_genotype, int32_t exact, int32_t bad_reads_window,
+    int64_t* counters, double* rmsmq, int32_t* min_quals,
+    int64_t* n_good_bad) {
+    const ptpu::InfoReads w{seq, qual, L, pos, end, rlen, mapq,
+                            strand_reverse, single_m, nsm_idx, nsm_flat,
+                            nsm_off};
+    ptpu::info_accumulate_window(w, sample_idx, is_good, is_broken, n_rows,
+                                 n_ind, n_var, var_spec, added_flat,
+                                 var_in_genotype, exact, bad_reads_window,
+                                 counters, rmsmq, min_quals, n_good_bad);
 }

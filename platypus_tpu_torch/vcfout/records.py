@@ -20,6 +20,7 @@ Faithful reimplementation of Platypus src/cython/vcfutils.pyx:
 from __future__ import annotations
 
 import math
+import struct
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -31,7 +32,7 @@ from ..io.bam import CIGAR_D, CIGAR_EQ, CIGAR_I, CIGAR_M, CIGAR_N, CIGAR_S, CIGA
 from ..utils.maths import beta_binomial_cdf, round_ref
 from ..utils.observability import GLOBAL_METRICS as metrics
 from .. import native
-from .writer import FILTER_NAMES, VCFWriter
+from .writer import FILTER_NAMES, VCFWriter, _fmt1
 
 LOG10E = 0.43429448190325182
 CANONICAL = set(b"ACGT")
@@ -247,48 +248,11 @@ def _var_in_genotype(call: WindowCall, variants: List[Variant]) -> bytes:
     return bytes(out)
 
 
-def _info_accounts_native(reads, call: WindowCall, variants: List[Variant],
-                          config: PlatypusConfig):
-    """Per variant (13 totals, rmsmq, sorted min quals, reads per sample,
-    variant reads per sample), and the window's good and bad row counts,
-    from one native call over the window; None when the library is
-    unavailable."""
-    if native.load() is None or not reads.qual.size:
-        return None
-    # The region gather precomputes the non-single-M CSR (shared flat
-    # tables + one idx gather per window); windows built outside the
-    # region matrix derive it here.
-    info_ctx = native.native_info_context(
-        reads, *(reads.nsm_ctx or _window_nsm_csr(reads)))
-    n_ind = len(call.n_reads)
-    counters, rms, min_quals, n_good, n_bad = native.native_info_accumulate_window(
-        info_ctx, n_ind,
-        np.array([(v.bam_min_pos, v.bam_max_pos, v.ref_pos, v.n_removed,
-                   v.n_added) for v in variants], np.int64).reshape(-1, 5),
-        b"".join(v.added for v in variants), _var_in_genotype(call, variants),
-        bool(config.count_only_exact_indel_matches), config.bad_reads_window)
-    metrics.count("vcf_native_calls")
-    metrics.count("vcf_native_rows", len(variants) * n_ind)
-    min_quals = min_quals.tolist()
-    lo = 0
-    out = []
-    for rows, rms_row in zip(counters.tolist(), rms.tolist()):
-        # MQ's fold: per individual, in individual order, from 0.0.
-        rmsmq = 0.0
-        for x in rms_row:
-            rmsmq += x
-        cols = list(zip(*rows))
-        hi = lo + sum(cols[13])
-        out.append(([sum(c) for c in cols[:13]], rmsmq,
-                    sorted(min_quals[lo:hi]), list(cols[0]), list(cols[2])))
-        lo = hi
-    return out, n_good, n_bad
-
-
 def _info_accounts_numpy(reads, call: WindowCall, variants: List[Variant],
                          config: PlatypusConfig):
-    """What _info_accounts_native returns, from numpy one (variant,
-    individual) at a time: the fallback when the library is unavailable."""
+    """Per variant (13 totals, rmsmq, sorted min quals, reads per sample,
+    variant reads per sample), and the window's good and bad row counts,
+    from numpy one (variant, individual) at a time."""
     n_ind = len(call.n_reads)
     good_rows_by_ind = [
         np.nonzero((reads.sample_idx == i) & reads.is_good)[0] for i in range(n_ind)
@@ -471,14 +435,9 @@ def compute_vcf_info(call: WindowCall, ref_file, config: PlatypusConfig) -> Dict
             else:
                 info[var]["FR"][0] += float(call.frequencies[hap_index])
 
-    # Native fast path: every (variant, individual) accounting pass of the
-    # window in one C++ call (ptpu_info_accumulate_window); the numpy body
-    # is the fallback.
     variants = list(info)
-    res = _info_accounts_native(reads, call, variants, config) if variants else None
-    if res is None:
-        res = _info_accounts_numpy(reads, call, variants, config)
-    accounts, n_good, n_bad = res
+    accounts, n_good, n_bad = _info_accounts_numpy(reads, call, variants,
+                                                   config)
 
     for variant, (totals, rmsmq, min_quals, n_reads_per_sample,
                   n_var_reads_per_sample) in zip(variants, accounts):
@@ -638,39 +597,6 @@ def trim_left_padding(pos: int, ref: str, alts: List[str]) -> Tuple[int, str, Li
     return pos, ref, alts
 
 
-def _genotype_context(call: WindowCall, samples: List[int],
-                      n_individuals: int):
-    """The window's tables prepared for the per-position native entry, to
-    call `samples`; None where the library is unavailable."""
-    if native.load() is None:
-        return None
-    return native.native_genotype_context(
-        call.likelihoods, call.frequencies, call.hap1_idx, call.hap2_idx,
-        call.gof, np.array(samples, np.int64), n_individuals)
-
-
-def _genotype_calls_native(ctx, samples: List[int], hap_is_ref_at_pos,
-                           var_in_hap):
-    """_compute_genotype_call_and_likelihoods_py of the context's samples
-    in one native call: {sample: the same tuple}; None when unavailable."""
-    if ctx is None:
-        return None
-    rows = native.native_genotype_call_samples(
-        ctx, hap_is_ref_at_pos, var_in_hap).tolist()
-    n_classes = len(rows[0]) - 7
-    out = {}
-    for i in samples:
-        row = rows[i]
-        (best_likelihood, non_ref_post, ref_post, sum_lik, best_gof,
-         phased1, phased2) = row[n_classes:]
-        if sum_lik == 0:
-            sum_lik = 1.0
-        out[i] = (int(phased1), int(phased2), row[:n_classes],
-                  best_likelihood / sum_lik, non_ref_post / sum_lik,
-                  ref_post / sum_lik, best_gof)
-    return out
-
-
 def _compute_genotype_call_and_likelihoods_py(
     call: WindowCall,
     sample_index: int,
@@ -770,6 +696,105 @@ def _compute_genotype_call_and_likelihoods_py(
 # Full window output
 # ---------------------------------------------------------------------------
 
+def _genotype_args(call: WindowCall):
+    """The window's genotype tables as ptpu_vcf_window takes them, checked
+    to agree on their shapes (the C side indexes them unchecked)."""
+    I, G = call.likelihoods.shape
+    if (len(call.frequencies) != len(call.hap_var_sets)
+            or call.loglik.shape != (len(call.hap_var_sets),
+                                     len(call.reads.rlen))
+            or len(call.hap1_idx) != G or len(call.hap2_idx) != G
+            or call.gof.shape[0] != G or call.gof.shape[1] < I
+            or len(call.n_reads) != I or len(call.genotype_calls) != I):
+        raise ValueError("the window's genotype tables disagree on their "
+                         "shapes")
+    return (
+        np.ascontiguousarray(call.likelihoods, np.float64).tobytes(),
+        np.ascontiguousarray(call.frequencies, np.float64).tobytes(),
+        np.ascontiguousarray(call.hap1_idx, np.int64).tobytes(),
+        np.ascontiguousarray(call.hap2_idx, np.int64).tobytes(),
+        np.ascontiguousarray(call.gof, np.float64).tobytes(),
+        np.ascontiguousarray(call.n_reads, np.int64).tobytes(),
+        np.array([-1 if g is None else g for g in call.genotype_calls],
+                 np.int64).tobytes(),
+    )
+
+
+def _vcf_lines_native(call: WindowCall, genotype_args, ref_file,
+                      config: PlatypusConfig, cols: List[int]):
+    """The window's data lines from one native call (ptpu_vcf_window):
+    (chrom, text, [1-based position, line end offset, ...], rows covered),
+    or None where the entry leaves the window to the Python route.  Python
+    lays out what the window holds: the variants in the order of output, which
+    haplotypes carry each (over the window's variants and the called ones,
+    for hap_is_ref), the priors and posteriors, the per-(haplotype, read)
+    likelihoods HapScore sums, the reference around the positions."""
+    reads = call.reads
+    ctx = native.native_info_context(
+        reads, *(reads.nsm_ctx or _window_nsm_csr(reads)))
+    positions = sorted(call.vars_by_pos)
+    variants = [v for p in positions for v in call.vars_by_pos[p]]
+    col: Dict[Variant, int] = {}
+    universe: List[Variant] = []
+    for v in call.window.variants:
+        if v not in col:
+            col[v] = len(universe)
+            universe.append(v)
+    n_window_cols = len(universe)
+    for v in variants:
+        if v not in col:
+            col[v] = len(universe)
+            universe.append(v)
+    NU = len(universe)
+    H = len(call.hap_var_sets)
+    member = bytearray(H * NU)
+    for h, hap_vars in enumerate(call.hap_var_sets):
+        for v in hap_vars:
+            j = col.get(v)
+            if j is not None:
+                member[h * NU + j] = 1
+    var_i = []
+    var_f = []
+    lo = hi = positions[0] - 20
+    for v in variants:
+        var_i += (v.bam_min_pos, v.bam_max_pos, v.ref_pos, v.n_removed,
+                  v.n_added, v.max_ref_pos, v.var_source, col[v])
+        var_f += (v.calculate_prior(ref_file), call.variant_posteriors[v])
+        hi = max(hi, v.ref_pos + 21, v.ref_pos + v.n_removed + 1)
+    chrom = variants[0].ref_name
+    ref = ref_file.get_sequence(chrom, lo, hi)
+    u_span = []
+    for v in universe:
+        u_span += (v.min_ref_pos, v.max_ref_pos)
+    qd_cap = _fmt1(config.qd_threshold + 10).encode()
+    chrom_b = chrom.encode()
+    I = len(call.n_reads)
+    dims = struct.pack(
+        "19q", reads.seq.shape[1], len(reads.rlen), I, len(call.hap1_idx), H,
+        call.gof.shape[1], len(variants), NU, n_window_cols, max(0, lo),
+        len(ref), ref_file.refs[chrom].length - 1, call.window.start_pos,
+        call.window.end_pos, len(cols),
+        int(config.count_only_exact_indel_matches), config.bad_reads_window,
+        len(chrom_b), len(qd_cap))
+    conf = struct.pack(
+        "12d", config.min_posterior, config.min_reads, config.output_ref_calls,
+        config.qd_threshold, config.sc_threshold, config.hap_score_threshold,
+        config.ab_threshold, config.sb_threshold, config.rmsmq_threshold,
+        config.bad_reads_threshold, config.filtered_reads_frac,
+        config.qd_threshold + 10)
+    added = b"".join(v.added for v in variants)
+    out = native.native_vcf_window(
+        ctx, genotype_args,
+        (struct.pack(f"{len(var_i)}q", *var_i),
+         struct.pack(f"{len(var_f)}d", *var_f), added,
+         struct.pack(f"{len(u_span)}q", *u_span), bytes(member)),
+        (np.ascontiguousarray(call.loglik, np.float64).tobytes(), ref,
+         chrom_b), struct.pack(f"{len(cols)}q", *cols), dims,
+        conf, qd_cap, len(positions),
+        4096 + len(positions) * (1024 + 4 * len(added) + 96 * len(cols)))
+    return None if out is None else (chrom, *out)
+
+
 def output_call_to_vcf(
     call: WindowCall,
     buffers,
@@ -778,24 +803,50 @@ def output_call_to_vcf(
     writer: VCFWriter,
 ) -> int:
     """Emit VCF records for a called window (vcfutils.pyx:338-599).
-    Returns the number of lines written."""
+    Returns the number of lines written.  One native call writes the
+    window's lines wherever the library loads (vcf_genotypes: the genotype
+    tables' layout; vcf_annotate: the rest of the inputs and the call;
+    vcf_write: the lines into the writer); else, or where the entry leaves
+    the window to it, the Python route below."""
     if not call.variant_posteriors:
         return 0
+    if native.load() is not None and call.reads.qual.size:
+        with metrics.timer("vcf_genotypes"):
+            genotype_args = _genotype_args(call)
+            cols = writer.sample_columns(buffers)
+        with metrics.timer("vcf_annotate"):
+            out = (_vcf_lines_native(call, genotype_args, ref_file, config,
+                                     cols) if cols is not None else None)
+        if out is not None:
+            with metrics.timer("vcf_write"):
+                chrom, text, lines, rows = out
+                writer.emit_lines(chrom, text, lines)
+                metrics.count("vcf_native_calls")
+                metrics.count("vcf_native_rows", rows)
+                metrics.count("vcf_native_windows")
+            return len(lines) // 2
+    return _output_call_to_vcf_py(call, buffers, ref_file, config, writer)
+
+
+def _output_call_to_vcf_py(
+    call: WindowCall,
+    buffers,
+    ref_file,
+    config: PlatypusConfig,
+    writer: VCFWriter,
+) -> int:
+    """output_call_to_vcf in Python: the route where the native library
+    does not load, and the oracle of ptpu_vcf_window's bytes."""
     with metrics.timer("vcf_annotate"):
         info = compute_vcf_info(call, ref_file, config)
         vcf_filter = compute_vcf_filter(call, info, config)
 
-    haplotypes = call.haplotypes
-    H = len(haplotypes)
+    H = len(call.haplotypes)
     hap_var_sets = call.hap_var_sets
     all_variants = list(call.window.variants)
     n_written = 0
-    with metrics.timer("vcf_genotypes"):
-        called = [i for i in range(len(buffers)) if call.n_reads[i] != 0]
-        gt_ctx = _genotype_context(call, called, len(buffers)) if called else None
-
-    for pos in sorted(call.vars_by_pos.keys()):
-        with metrics.timer("vcf_write"):
+    with metrics.timer("vcf_write"):
+        for pos in sorted(call.vars_by_pos.keys()):
             variants = call.vars_by_pos[pos]
             n_vars = len(variants)
 
@@ -841,14 +892,6 @@ def output_call_to_vcf(
             sample_data: Dict[str, Dict[str, list]] = {}
             max_gof = 0.0
             n_non_ref_calls = 0
-        with metrics.timer("vcf_genotypes"):
-            # One native call for every sample with reads where the
-            # library loads, else the Python body sample by sample.
-            calls = _genotype_calls_native(gt_ctx, called, hap_is_ref,
-                                           var_in_hap)
-            if calls is not None:
-                metrics.count("vcf_native_calls")
-                metrics.count("vcf_native_rows", len(called))
             for i, buf in enumerate(buffers):
                 sample = buf.sample
                 if call.n_reads[i] == 0:
@@ -859,9 +902,8 @@ def output_call_to_vcf(
                 (
                     index1, index2, likelihoods, genotype_post, non_ref_post,
                     ref_post, gof_value,
-                ) = calls[i] if calls is not None else (
-                    _compute_genotype_call_and_likelihoods_py(
-                        call, i, variants, hap_is_ref, var_in_hap, len(buffers)))
+                ) = _compute_genotype_call_and_likelihoods_py(
+                    call, i, variants, hap_is_ref, var_in_hap, len(buffers))
                 if not (index1 == 0 and index2 == 0):
                     n_non_ref_calls += 1
                 gt = [str(index1), "/", str(index2)]
@@ -891,7 +933,6 @@ def output_call_to_vcf(
                 )
                 if gof_value > max_gof:
                     max_gof = gof_value
-        with metrics.timer("vcf_write"):
             line_info.pop("nReadsPerSample", None)
             line_info.pop("nVarReadsPerSample", None)
             line_info.pop("ABPV", None)

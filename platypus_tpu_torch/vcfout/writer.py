@@ -133,6 +133,29 @@ class VCFWriter:
         if len(self._heap) > 100:
             self.out.write(heapq.heappop(self._heap)[2])
 
+    def emit_lines(self, chrom: str, text: bytes, meta: List[int]) -> None:
+        """_emit each of a window's lines: `text` holds them back to back,
+        meta their (1-based position, end offset) pairs."""
+        import heapq
+
+        key = self._chrom_key(chrom)
+        heap = self._heap
+        start = 0
+        for k in range(0, len(meta), 2):
+            end = meta[k + 1]
+            heapq.heappush(heap, (key, meta[k], text[start:end].decode()))
+            start = end
+            if len(heap) > 100:
+                self.out.write(heapq.heappop(heap)[2])
+
+    def sample_columns(self, buffers) -> Optional[List[int]]:
+        """The index in `buffers` of each output sample (the last buffer of
+        that name, as a dict keyed by name keeps it); None where a sample
+        has no buffer."""
+        index = {buf.sample: i for i, buf in enumerate(buffers)}
+        cols = [index.get(sample) for sample in self.samples]
+        return None if None in cols else cols
+
     def drain(self) -> None:
         """Flush the look-ahead buffer (end of a region / end of run)."""
         import heapq

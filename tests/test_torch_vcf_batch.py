@@ -1,11 +1,10 @@
-"""The VCF output's batched native entries (platypus_tpu_torch/native):
-INFO accounting crosses into C++ once per window
-(ptpu_info_accumulate_window) and genotype calls once per position
-(ptpu_genotype_call_samples).  Each is held bitwise to the Python route
-used where the library does not load (the numpy INFO body; the genotype
-body per sample), a loaded library sends every position to the native
-entry, and a port run on a 3-sample cohort counts how many accountings
-each crossing covers."""
+"""The VCF output's native parts (platypus_tpu_torch/native): a window's
+INFO accounting (ptpu_info_accumulate_window) and a position's genotype
+calls (ptpu_genotype_call_samples), which the window entry ptpu_vcf_window
+runs, each held bitwise to the Python route used where the library does
+not load (the numpy INFO body; the genotype body per sample); a loaded
+library sends every window to the window entry, and a port run on a
+3-sample cohort counts how many accountings each crossing covers."""
 
 import types
 
@@ -15,6 +14,7 @@ import pytest
 from platypus_tpu_torch import cli as port_cli
 from platypus_tpu_torch import native
 from platypus_tpu_torch.candidates.variant import Variant
+from platypus_tpu_torch.engine import region as region_mod
 from platypus_tpu_torch.ops.likelihood import genotype_index_pairs
 from platypus_tpu_torch.utils.observability import GLOBAL_METRICS
 from platypus_tpu_torch.vcfout import records
@@ -133,6 +133,35 @@ def _info_window(rng, n_ind):
     return reads, call, variants
 
 
+def _info_accounts_native(reads, call, variants, config):
+    """The window entry's INFO accounting (ptpu_info_accumulate_window) in
+    the form records._info_accounts_numpy returns."""
+    info_ctx = native.native_info_context(
+        reads, *(reads.nsm_ctx or records._window_nsm_csr(reads)))
+    n_ind = len(call.n_reads)
+    counters, rms, min_quals, n_good, n_bad = native.native_info_accumulate_window(
+        info_ctx, n_ind,
+        np.array([(v.bam_min_pos, v.bam_max_pos, v.ref_pos, v.n_removed,
+                   v.n_added) for v in variants], np.int64).reshape(-1, 5),
+        b"".join(v.added for v in variants),
+        records._var_in_genotype(call, variants),
+        bool(config.count_only_exact_indel_matches), config.bad_reads_window)
+    min_quals = min_quals.tolist()
+    lo = 0
+    out = []
+    for rows, rms_row in zip(counters.tolist(), rms.tolist()):
+        # MQ's fold: per individual, in individual order, from 0.0.
+        rmsmq = 0.0
+        for x in rms_row:
+            rmsmq += x
+        cols = list(zip(*rows))
+        hi = lo + sum(cols[13])
+        out.append(([sum(c) for c in cols[:13]], rmsmq,
+                    sorted(min_quals[lo:hi]), list(cols[0]), list(cols[2])))
+        lo = hi
+    return out, n_good, n_bad
+
+
 @pytest.mark.parametrize("n_ind", [1, 3, 16, 30])
 def test_info_window_entry_matches_numpy_body(n_ind):
     """The window entry's accounts (per variant: the 13 totals, MQ's sum,
@@ -148,7 +177,7 @@ def test_info_window_entry_matches_numpy_body(n_ind):
             count_only_exact_indel_matches=int(rng.random() < 0.5),
             bad_reads_window=int(rng.choice([1, 7, 15])))
         want = records._info_accounts_numpy(reads, call, variants, config)
-        got = records._info_accounts_native(reads, call, variants, config)
+        got = _info_accounts_native(reads, call, variants, config)
         assert got == want, trial
         for (_t, rms_got, *_), (_t2, rms_want, *_) in zip(got[0], want[0]):
             assert np.float64(rms_got).tobytes() == np.float64(rms_want).tobytes()
@@ -171,6 +200,25 @@ def _random_gt_window(rng, n_ind_lo: int, n_ind_hi: int):
     return call, hap_is_ref, var_in_hap, n_vars, I
 
 
+def _genotype_calls_native(ctx, samples, hap_is_ref, var_in_hap):
+    """The genotype calls of the context's samples at one position
+    (ptpu_genotype_call_samples): {sample: the Python body's tuple}."""
+    rows = native.native_genotype_call_samples(
+        ctx, hap_is_ref, var_in_hap).tolist()
+    n_classes = len(rows[0]) - 7
+    out = {}
+    for i in samples:
+        row = rows[i]
+        (best_likelihood, non_ref_post, ref_post, sum_lik, best_gof,
+         phased1, phased2) = row[n_classes:]
+        if sum_lik == 0:
+            sum_lik = 1.0
+        out[i] = (int(phased1), int(phased2), row[:n_classes],
+                  best_likelihood / sum_lik, non_ref_post / sum_lik,
+                  ref_post / sum_lik, best_gof)
+    return out
+
+
 def _same_genotype_call(want, got) -> bool:
     return (want[0] == got[0] and want[1] == got[1]
             and np.asarray(want[2]).tobytes() == np.asarray(got[2]).tobytes()
@@ -189,8 +237,7 @@ def test_genotype_samples_entry_matches_python_oracle(cohort):
         ctx = native.native_genotype_context(
             call.likelihoods, call.frequencies, call.hap1_idx, call.hap2_idx,
             call.gof, np.array(samples), I)
-        got = records._genotype_calls_native(ctx, samples, hap_is_ref,
-                                             var_in_hap)
+        got = _genotype_calls_native(ctx, samples, hap_is_ref, var_in_hap)
         assert sorted(got) == samples
         for i in samples:
             want = records._compute_genotype_call_and_likelihoods_py(
@@ -217,42 +264,70 @@ def _run_port(info, out):
     with open(out) as fh:
         lines = [line for line in fh if not line.startswith("#")]
     counters = GLOBAL_METRICS.counters
-    return lines, counters.get("vcf_native_calls", 0), counters.get("vcf_native_rows", 0)
+    return (lines, counters.get("vcf_native_calls", 0),
+            counters.get("vcf_native_rows", 0),
+            counters.get("vcf_native_windows", 0))
 
 
 class _Stub:
     load = staticmethod(lambda auto_build=True: None)
 
 
+def _count_windows(monkeypatch):
+    """Count the windows that reach the VCF output with posteriors."""
+    windows = []
+    inner = region_mod.output_call_to_vcf
+
+    def counting(call, *args):
+        if call.variant_posteriors:
+            windows.append(1)
+        return inner(call, *args)
+
+    monkeypatch.setattr(region_mod, "output_call_to_vcf", counting)
+    return windows
+
+
 def test_vcf_native_counters_and_stubbed_native(cohort3, tmp_path, monkeypatch):
-    lines, calls, rows = _run_port(cohort3, str(tmp_path / "native.vcf"))
+    """One crossing a window covers its (variant, individual) accountings
+    and (position, sample) calls; vcf_native_windows counts every window
+    that reaches the VCF output.  With the library stubbed the Python route
+    writes the same bytes and every counter reads 0."""
+    windows = _count_windows(monkeypatch)
+    lines, calls, rows, n_windows = _run_port(cohort3,
+                                              str(tmp_path / "native.vcf"))
     assert len(lines) > 3
     assert calls > 0 and rows / calls >= 3
+    assert n_windows == calls == len(windows)
     monkeypatch.setattr(records, "native", _Stub)
-    py_lines, py_calls, py_rows = _run_port(cohort3, str(tmp_path / "python.vcf"))
-    assert (py_calls, py_rows) == (0, 0)
+    py_lines, py_calls, py_rows, py_windows = _run_port(
+        cohort3, str(tmp_path / "python.vcf"))
+    assert (py_calls, py_rows, py_windows) == (0, 0, 0)
     assert py_lines == lines
 
 
 def test_loaded_library_calls_every_position_natively(cohort3, tmp_path,
                                                      monkeypatch):
-    """With the library loaded, the first window's positions already go to
-    the per-position entry, one call a written position, and the Python
-    genotype body is never called."""
-    positions, python_calls = [], []
-    inner = native.native_genotype_call_samples
+    """With the library loaded, the first window already goes to the window
+    entry, one call a window that reaches the VCF output, whose lines are
+    every line of the file, and the Python route is never called."""
+    windows, written, python_calls = [], [], []
+    inner = native.native_vcf_window
 
-    def per_position(*args, **kwargs):
-        positions.append(1)
-        return inner(*args, **kwargs)
+    def per_window(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        windows.append(1)
+        written.append(len(out[1]) // 2)
+        return out
 
-    def python_body(*args, **kwargs):
+    def python_route(*args, **kwargs):
         python_calls.append(1)
-        raise AssertionError("the Python genotype body was called")
+        raise AssertionError("the Python route was called")
 
-    monkeypatch.setattr(native, "native_genotype_call_samples", per_position)
-    monkeypatch.setattr(records, "_compute_genotype_call_and_likelihoods_py",
-                        python_body)
-    lines, _calls, _rows = _run_port(cohort3, str(tmp_path / "native.vcf"))
+    reached = _count_windows(monkeypatch)
+    monkeypatch.setattr(native, "native_vcf_window", per_window)
+    monkeypatch.setattr(records, "_output_call_to_vcf_py", python_route)
+    lines, _calls, _rows, _windows = _run_port(cohort3,
+                                               str(tmp_path / "native.vcf"))
     assert lines and not python_calls
-    assert len(positions) == len(lines)
+    assert len(windows) == len(reached)
+    assert sum(written) == len(lines)
