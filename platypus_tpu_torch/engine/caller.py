@@ -118,7 +118,8 @@ def _beam_search_haplotypes(
     device,
 ) -> List[Haplotype]:
     """Support-ordered greedy haplotype growth (variantFilter.pyx:440-506),
-    scoring each growth round's candidates in one device call."""
+    scoring each growth round's candidates in one device call (counted in
+    `beam_rounds`, the haplotypes it scores in `beam_candidates`)."""
     original_max = rt.original_max_haplotypes - 1
     max_haps = rt.max_haplotypes - 1
     window_size = window.end_pos - window.start_pos
@@ -133,6 +134,8 @@ def _beam_search_haplotypes(
         """Per candidate hap: max over samples of
         sum_r ln(0.5 e^s_ref + 0.5 e^s_hap) over the subsampled rows
         (computeBestScoreForGenotype, variantFilter.pyx:237-283)."""
+        metrics.count("beam_rounds")
+        metrics.count("beam_candidates", len(haps))
         ll = score_reads_vs_haplotypes([ref_hap] + haps, sub, device,
                                        use_map_qual_cap=False)
         with np.errstate(over="ignore"):
@@ -210,8 +213,10 @@ def get_haplotypes_in_window(
         config.filter_vars_by_coverage and config.max_variants <= math.log2(max_haps)
     ):
         return _all_subset_haplotypes(window, variants, ref_file, rt.rlen)
-    return _beam_search_haplotypes(window, variants, ref_hap, buffers, reads,
-                                   ref_file, config, rt, device)
+    metrics.count("beam_windows")
+    with metrics.timer("beam_search"):
+        return _beam_search_haplotypes(window, variants, ref_hap, buffers,
+                                       reads, ref_file, config, rt, device)
 
 
 @dataclass

@@ -442,6 +442,10 @@ def prepare_region_call(
 
         for buf in buffers:
             metrics.count("reads", len(buf.good) + len(buf.bad))
+            for name, n in buf.filter_counts.items():
+                metrics.count("reads_filtered." + name, n)
+            for name, n in buf.trimmed.items():
+                metrics.count("reads_trimmed_" + name, n)
             if config.verbosity >= 3:
                 logger.info("sample %s: %d good, %d bad, %d broken; filters %s",
                             buf.sample, len(buf.good), len(buf.bad),
@@ -516,6 +520,7 @@ def prepare_region_call(
         with metrics.timer("window_prepare"), metrics.timer("pair_fill"):
             fill_deferred_pairs([p.request for _, p in live])
         metrics.count("windows", len(windows))
+        metrics.count("beam_windows", 0)  # reads 0, not absent, without one
         metrics.count("alignment_pairs",
                       sum(p.request.n_pairs() for _, p in live
                           if p.request is not None))

@@ -187,6 +187,21 @@ def check_and_trim_reads(reads: ReadSet, opts: QCOptions) -> Tuple[np.ndarray, D
     return ~bad, counts
 
 
+def trim_counts(reads: ReadSet, good: np.ndarray, opts: QCOptions) -> Dict[str, int]:
+    """How many good reads meet the overlapping-mate and the adapter
+    read-through trim's condition (_trim_good_reads), from the same fields:
+    {"overlap": n, "adapter": n}."""
+    flag = reads.flag
+    rlen = reads.rlen.astype(np.int64)
+    abs_ins = np.abs(reads.insert_size.astype(np.int64))
+    paired = good & ((flag & FLAG_PAIRED) != 0) & (abs_ins > 0)
+    overlap = (paired & ((flag & FLAG_REVERSE) == 0)
+               & ((flag & FLAG_MREVERSE) != 0) & (abs_ins < 2 * rlen))
+    adapter = paired & (abs_ins < rlen)
+    return {"overlap": int(overlap.sum()) if opts.trim_overlapping else 0,
+            "adapter": int(adapter.sum()) if opts.trim_adapter else 0}
+
+
 def _valid_mask(reads: ReadSet) -> np.ndarray:
     L = reads.seq.shape[1]
     return np.arange(L)[None, :] < reads.rlen[:, None]
@@ -272,12 +287,14 @@ class SampleReadBuffer:
         broken: Optional[ReadSet] = None,
         filter_counts: Optional[Dict[str, int]] = None,
         presorted: bool = False,
+        trimmed: Optional[Dict[str, int]] = None,
     ):
         self.sample = sample
         self.good = good
         self.bad = bad
         self.broken = broken if broken is not None else empty_read_set()
         self.filter_counts = filter_counts or {}
+        self.trimmed = trimmed or {}
         # Sort by adjusted pos (stable keeps stream order for ties).
         # presorted=True: good/bad already arrive pos-sorted (the fused
         # split+sort gather in build_sample_buffer) — skip the re-argsort.
@@ -438,6 +455,7 @@ def build_sample_buffer(sample: str, stream: ReadSet, opts: QCOptions,
                         broken: Optional[ReadSet] = None) -> SampleReadBuffer:
     """QC a stream-ordered ReadSet and triage it into a SampleReadBuffer."""
     good_mask, counts = check_and_trim_reads(stream, opts)
+    trimmed = trim_counts(stream, good_mask, opts)
     # Fused split+sort: gather each pile once, already in adjusted-pos order
     # (a stable argsort of the subset equals the subset of the stable overall
     # order, so this is row-identical to split-then-sort — but reads whose
@@ -446,4 +464,5 @@ def build_sample_buffer(sample: str, stream: ReadSet, opts: QCOptions,
     bad_idx = np.nonzero(~good_mask)[0]
     good = stream.take(good_idx[np.argsort(stream.pos[good_idx], kind="stable")])
     bad = stream.take(bad_idx[np.argsort(stream.pos[bad_idx], kind="stable")])
-    return SampleReadBuffer(sample, good, bad, broken, counts, presorted=True)
+    return SampleReadBuffer(sample, good, bad, broken, counts, presorted=True,
+                            trimmed=trimmed)
